@@ -1,0 +1,614 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`src/repro_torch/`) on one NVIDIA card.
+
+    python3 chip_smoke.py            # from the root of the repo, one card
+
+Phases, one JSON line each (any failed check raises and the exit code is
+not 0):
+
+1. device  — the card (nvidia-smi's name and power limit), torch and CUDA.
+2. build   — nvcc builds the port's kernels from `src/repro_torch/kernels/
+             csrc/` (one nvcc per source, all started together).
+3. data    — the `synth_192d` spec at 1,000,000 rows and 192 dimensions,
+             opened as `FilteredIndex(ds)` on the card.
+4. kernels — each kernel against its plain PyTorch version on the card:
+             bit-identical on an integer grid with forced ties, within the
+             stated fp32 summation-order tolerance on random floats at the
+             exact-search path's shapes, exact for selectivity; then timed
+             (CUDA events, warm, L2 flushed) on the path's own inputs.
+5. path    — the port's main path through its entry points: (a) exact
+             search `fx.search(batch, "prefilter")` for each predicate,
+             held against numpy ground truth; (b) the offline table-B rows
+             of `postfilter` and `ivf_gamma` via `bench.run_method`; (c)
+             routed serving, `RouterService(fx, router, t=0.9).search` and
+             `search_chunked`, with the router artifact in
+             `src/repro_torch/assets/router_ivf/`; (d) both kernels' launch
+             counts, set to 0 just before (a) and read just after (c).
+
+The last three lines are nvidia-smi's name and power limit, the kernels'
+JSON line and `{"ok": true, "device": {...}}`. Without a CUDA device the
+script exits 1 and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch.ann import bench  # noqa: E402
+from repro_torch.ann.dataset import ground_truth_topk, recall_at_k  # noqa: E402
+from repro_torch.ann.engine import DEFAULT_QCHUNK, to_device  # noqa: E402
+from repro_torch.ann.index import FilteredIndex, QueryBatch  # noqa: E402
+from repro_torch.ann.predicates import (PREDICATES, Predicate,  # noqa: E402
+                                        eval_predicate_np)
+from repro_torch.ann.registry import get_method  # noqa: E402
+from repro_torch.ann.service import RouterService  # noqa: E402
+from repro_torch.core import features as F  # noqa: E402
+from repro_torch.core.router import MLRouter  # noqa: E402
+from repro_torch.data.ann_synth import (VALIDATION_SPECS,  # noqa: E402
+                                        make_queries, synthesize)
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import bitmap_filter as bf  # noqa: E402
+from repro_torch.kernels import masked_topk as mk  # noqa: E402
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): fp32
+# outside the tensor cores, and HBM3. 32-bit integer operations (add,
+# compare, AND/OR/XOR) issue at 64 results per clock per SM on compute
+# capability 9.0 (the CUDA C++ Programming Guide's table of arithmetic
+# instruction throughput), over 132 SMs at the 1.98 GHz boost clock that
+# the fp32 figure (128 lanes, an FMA counted as two) also assumes.
+FP32_FLOPS = 67e12
+INT32_OPS = 64 * 132 * 1.98e9
+HBM_BYTES_S = 3.35e12
+
+# The main path's size: `synth_192d` at 1M rows, 256-query batches, the
+# first 32 exact-search queries of each held against numpy ground truth.
+ROWS = 1_000_000
+QUERIES = 256
+GT_QUERIES = 32
+
+PRED_NAMES = ("EQUALITY", "AND", "OR")
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, reps: int, flush) -> float:
+    """Median device time of one `fn()` call: CUDA events around each call,
+    after two warm calls; the L2 cache is flushed and the host is let ahead
+    (a device-side sleep) before every timed call, so the events bracket
+    device work and not the host's enqueue."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def masked_topk_bound(mask, d: int, w: int, k: int) -> tuple[float, float]:
+    """(operations time, bytes time) in seconds for one masked_topk launch whose predicate
+    mask [Q, N] is `mask`: each input byte read once (the bitmaps, the
+    queries, and the base rows and norms of rows that pass for some
+    query), each output written once; fp32 work 2·D + 2 per passing
+    (query, row) pair, and one 32-bit op per (query, row, word) for the
+    predicate."""
+    q, n = mask.shape
+    rows = int(mask.any(0).sum())
+    pairs = int(mask.sum())
+    nbytes = n * w * 4 + rows * (d + 1) * 4 + q * (d + w) * 4 + q * k * 8
+    t_ops = pairs * (2 * d + 2) / FP32_FLOPS + q * n * w / INT32_OPS
+    return t_ops, nbytes / HBM_BYTES_S
+
+
+def selectivity_bound(q: int, n: int, w: int) -> tuple[float, float]:
+    """(operations time, bytes time) in seconds for one selectivity launch: the bitmaps and
+    queries read once, the counts written once; one 32-bit op per
+    (query, row, word)."""
+    nbytes = n * w * 4 + q * w * 4 + q * 4
+    return q * n * w / INT32_OPS, nbytes / HBM_BYTES_S
+
+
+# ---------------------------------------------------------------------------
+# phase 4: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def tie_case(rng, q: int, n: int, d: int = 24, w: int = 2):
+    """Integer-grid vectors (multiples of 1/4) with duplicated rows: every
+    score is exact in fp32 whatever the summation order, ties are
+    frequent. Query 0 carries no labels."""
+    qv = (rng.integers(-6, 7, (q, d)) / 4.0).astype(np.float32)
+    base = (rng.integers(-6, 7, (n, d)) / 4.0).astype(np.float32)
+    base[n // 2: n // 2 + n // 4] = base[: n // 4]
+    norms = (base.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    qb = (rng.integers(0, 2, (q, w)) * rng.integers(1, 8, (q, w))
+          ).astype(np.uint32)
+    bm = (rng.integers(0, 2, (n, w)) * rng.integers(1, 8, (n, w))
+          ).astype(np.uint32)
+    qb[0] = 0
+    return qv, qb, base, norms, bm
+
+
+def pattern_bitmaps(rng, q: int, n: int, w: int, pred: int):
+    """Row label sets drawn from 32 random patterns, so each predicate
+    passes a sizeable share of rows; queries built for `pred` (a pattern
+    for EQUALITY, a subset of one for AND, a few random bits for OR).
+    Query 0 carries no labels. Returns (qbms [q, w], bitmaps [n, w])."""
+    def words(shape):
+        return rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(
+            np.uint32)
+
+    pats = words((32, w)) & words((32, w)) & words((32, w))
+    bm = pats[rng.integers(0, 32, n)]
+    src = pats[rng.integers(0, 32, q)]
+    if pred == 0:
+        qb = src.copy()
+    elif pred == 1:
+        qb = src & words((q, w))
+    else:
+        qb = (rng.random((q, w)) < 0.3).astype(np.uint32) << \
+            rng.integers(0, 32, (q, w)).astype(np.uint32)
+    qb[0] = 0
+    return qb, bm
+
+
+def on_card(dev, *arrays):
+    """numpy arrays -> tensors on `dev`; uint32 bitmaps as int32 views."""
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
+                         if a.dtype == np.uint32 else a).to(dev)
+        for a in arrays)
+
+
+def check_kernels(dev, n: int, d: int, w: int) -> dict:
+    """Kernel vs plain version on the card. Returns max abs errors."""
+    rng = np.random.default_rng(0)
+    tie_cases = 0
+    for q, nn, k in [(1, 64, 5), (7, 256, 41), (25, 1024, 10),
+                     (5, 1001, 10), (3, 20011, 128), (37, 70001, 10)]:
+        args = on_card(dev, *tie_case(rng, q, nn))
+        for pred in range(3):
+            gd, gi = mk.masked_topk_accum(*args, pred=pred, k=k)
+            pd, pi = mk.masked_topk_plain(*args, pred=pred, k=k)
+            torch.cuda.synchronize()
+            if not (torch.equal(gi, pi) and torch.equal(gd, pd)):
+                raise AssertionError(
+                    f"masked_topk differs from its plain version on the tie "
+                    f"grid: pred {pred}, q {q}, n {nn}, k {k}")
+            tie_cases += 1
+
+    # Random fp32 at the exact-search path's shapes. Two fp32 sums of D
+    # products taken in different orders differ by at most about
+    # 2·D·u·Σ|q_i·v_i| (u = 2^-24), and Σ|q_i·v_i| <= ‖q‖·‖v‖, so scores
+    # may differ by tol = 2·D·u·max(‖v‖² + 2‖q‖‖v‖). Each returned id must
+    # pass the predicate, come once per query and carry its own plain
+    # score; ids may differ only where the plain scores of both ids lie
+    # within tol of each other.
+    topk_err, q, k = 0.0, 64, 10
+    qv = rng.normal(size=(q, d)).astype(np.float32)
+    base = rng.normal(size=(n, d)).astype(np.float32)
+    norms = (base.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    vn = float(np.sqrt(norms.max()))
+    qn = float(np.sqrt((qv.astype(np.float64) ** 2).sum(1).max()))
+    tol = 2 * d * 2.0 ** -24 * (vn * vn + 2 * qn * vn)
+    vecs = on_card(dev, qv, base, norms)
+    for pred in range(3):
+        qbt, bmt = on_card(dev, *pattern_bitmaps(rng, q, n, w, pred))
+        args = (vecs[0], qbt, vecs[1], vecs[2], bmt)
+        gd, gi = mk.masked_topk_accum(*args, pred=pred, k=k)
+        pd, pi = mk.masked_topk_plain(*args, pred=pred, k=k)
+        torch.cuda.synchronize()
+        if not torch.equal(gi < 0, pi < 0):
+            raise AssertionError(f"masked_topk fill differs, pred {pred}")
+        real = gi >= 0
+        err = float((gd - pd)[real].abs().max()) if bool(real.any()) else 0.0
+        if err > tol:
+            raise AssertionError(
+                f"masked_topk scores differ by {err} > {tol}, pred {pred}")
+        mask = mk._predicate_mask_block(bmt, qbt, pred)
+        scores = vecs[2][None] - 2.0 * (vecs[0] @ vecs[1].T)
+        gil, pil = gi.long().clamp(min=0), pi.long().clamp(min=0)
+        got_s = scores.gather(1, gil)
+        differ = (gi != pi) & real
+        id_err = float((got_s - gd)[real].abs().max()) if bool(
+            real.any()) else 0.0
+        swap_err = float((got_s - scores.gather(1, pil))[differ].abs().max()
+                         ) if bool(differ.any()) else 0.0
+        if id_err > tol or swap_err > tol:
+            raise AssertionError(
+                f"masked_topk ids disagree with their scores, pred {pred}: "
+                f"{id_err} / {swap_err} > {tol}")
+        if not bool(mask.gather(1, gil)[real].all()):
+            raise AssertionError(f"masked_topk returned a row that fails "
+                                 f"the predicate, pred {pred}")
+        for row, ok in zip(gi.tolist(), real.tolist()):
+            kept = [i for i, o in zip(row, ok) if o]
+            if len(set(kept)) != len(kept):
+                raise AssertionError(f"masked_topk returned an id twice, "
+                                     f"pred {pred}")
+        topk_err = max(topk_err, err)
+        emit("kernels.masked_topk.random", pred=PRED_NAMES[pred], q=q, n=n,
+             d=d, w=w, k=k, max_abs_err=err, tol=tol,
+             ids_differing=int(differ.sum()), id_score_err=id_err,
+             swapped_score_err=swap_err, pairs_passing=int(mask.sum()))
+        del mask, scores
+    del vecs, args
+
+    sel_cases = 0
+    for qq, nn in [(1, 50), (7, 131), (40, 100003), (256, n)]:
+        for pred in range(3):
+            qbt, bmt = on_card(dev, *pattern_bitmaps(rng, qq, nn, w, pred))
+            got = bf.selectivity_count(qbt, bmt, pred=pred)
+            want = bf.selectivity_plain(qbt, bmt, pred=pred)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"selectivity differs from its plain version: pred "
+                    f"{pred}, q {qq}, n {nn}")
+            sel_cases += 1
+    emit("kernels.check", masked_topk_tie_grid_cases=tie_cases,
+         masked_topk_tie_grid="bit-identical", masked_topk_random_max_abs_err=
+         topk_err, selectivity_cases=sel_cases, selectivity="exact")
+    return {"masked_topk": topk_err, "selectivity": 0.0}
+
+
+def time_kernels(fx, batches: dict, dev) -> dict:
+    """Kernel and plain-version times on the path's inputs: masked_topk on
+    the first 64-query chunk of each predicate's exact-search batch,
+    selectivity on the whole batch (the routing stage's 256 queries).
+    Returns per-kernel sums over the three predicates."""
+    dd = fx.device
+    n, w = dd.bitmaps.shape
+    d = dd.vectors.shape[1]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+    out = {name: dict(ms=0.0, plain_ms=0.0, bound_s=0.0, ops_s=0.0,
+                      bytes_s=0.0) for name in ("masked_topk", "selectivity")}
+
+    def add(name, ms, plain_ms, bound):
+        o = out[name]
+        o["ms"] += ms
+        o["plain_ms"] += plain_ms
+        o["bound_s"] += max(bound)
+        o["ops_s"] += bound[0]
+        o["bytes_s"] += bound[1]
+    for pred, batch in batches.items():
+        qv = to_device(batch.vectors[:DEFAULT_QCHUNK], dev)
+        qb = to_device(batch.bitmaps[:DEFAULT_QCHUNK], dev)
+        base = (qv, qb, dd.vectors, dd.norms, dd.bitmaps)
+        ms = time_ms(lambda: mk.masked_topk_accum(*base, pred=pred, k=10),
+                     10, flush)
+        pms = time_ms(lambda: mk.masked_topk_plain(*base, pred=pred, k=10),
+                      5, flush)
+        bound = masked_topk_bound(
+            mk._predicate_mask_block(dd.bitmaps, qb, pred), d, w, 10)
+        add("masked_topk", ms, pms, bound)
+
+        qball = to_device(batch.bitmaps, dev)
+        sms = time_ms(lambda: bf.selectivity_count(qball, dd.bitmaps,
+                                                   pred=pred),
+                      20, flush)
+        spms = time_ms(lambda: bf.selectivity_plain(qball, dd.bitmaps,
+                                                    pred=pred),
+                       5, flush)
+        sbound = selectivity_bound(batch.q, n, w)
+        add("selectivity", sms, spms, sbound)
+        emit("kernels.time", pred=PRED_NAMES[pred], masked_topk_q=qv.shape[0],
+             masked_topk_ms=ms, masked_topk_plain_ms=pms,
+             masked_topk_bound_ms=max(bound) * 1e3,
+             masked_topk_bound_ops_ms=bound[0] * 1e3,
+             masked_topk_bound_bytes_ms=bound[1] * 1e3,
+             selectivity_q=batch.q, selectivity_ms=sms,
+             selectivity_plain_ms=spms, selectivity_bound_ms=max(sbound) * 1e3,
+             selectivity_bound_ops_ms=sbound[0] * 1e3,
+             selectivity_bound_bytes_ms=sbound[1] * 1e3)
+    del flush
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path
+# ---------------------------------------------------------------------------
+
+def check_result(ds, batch, res, what: str) -> None:
+    """Shapes, id range, finite exact distances that agree with a float64
+    recomputation, and every returned row passing the predicate."""
+    ids, dist = res.ids, res.distances
+    if ids.shape != (batch.q, batch.k) or dist.shape != ids.shape:
+        raise AssertionError(f"{what}: shapes {ids.shape} / {dist.shape}")
+    if ids.min() < -1 or ids.max() >= ds.n:
+        raise AssertionError(f"{what}: ids outside [-1, {ds.n})")
+    ok = ids >= 0
+    if not np.isfinite(dist[ok]).all() or not np.isnan(dist[~ok]).all():
+        raise AssertionError(f"{what}: distances not finite at real ids")
+    safe = np.maximum(ids, 0)
+    exact = ((ds.vectors[safe].astype(np.float64)
+              - batch.vectors[:, None, :].astype(np.float64)) ** 2).sum(-1)
+    scale = ((np.linalg.norm(ds.vectors[safe], axis=-1)
+              + np.linalg.norm(batch.vectors, axis=-1)[:, None]) ** 2)
+    tol = 4 * ds.dim * 2.0 ** -24 * scale
+    if (np.abs(exact - dist)[ok] > tol[ok]).any():
+        raise AssertionError(f"{what}: distances disagree with float64")
+    passes = eval_predicate_np(ds.bitmaps[safe], batch.bitmaps[:, None, :],
+                               batch.pred)
+    if not passes[ok].all():
+        raise AssertionError(f"{what}: a returned row fails the predicate")
+
+
+def hold_against_ground_truth(ds, batch, ids, n_gt: int) -> int:
+    """The first `n_gt` queries' exact-search ids against numpy brute
+    force: equal, or equal in their sorted float64 distances up to fp32
+    summation order (near-ties may swap). Returns the count of queries
+    whose ids are identical."""
+    gt = ground_truth_topk(ds, batch.vectors[:n_gt], batch.bitmaps[:n_gt],
+                           batch.pred, batch.k)
+    same = 0
+    for qi in range(n_gt):
+        a, b = ids[qi], gt[qi]
+        if np.array_equal(a, b):
+            same += 1
+            continue
+        if not np.array_equal(a >= 0, b >= 0):
+            raise AssertionError(f"query {qi}: fill differs from ground truth")
+        q = batch.vectors[qi].astype(np.float64)
+
+        def dists(x):
+            v = ds.vectors[x[x >= 0]].astype(np.float64)
+            return np.sort(((v - q) ** 2).sum(1))
+
+        da, db = dists(a), dists(b)
+        tol = 4 * ds.dim * 2.0 ** -24 * (np.sqrt(db.max()) +
+                                         2 * np.linalg.norm(q)) ** 2
+        if np.abs(da - db).max() > tol:
+            raise AssertionError(
+                f"query {qi}: exact-search ids are not a top-k "
+                f"({np.abs(da - db).max()} > {tol})")
+    return same
+
+
+def run_path(fx, router_dir: str, nq: int, n_gt: int, seed: int = 11):
+    """The main path on the handle `fx`. Returns (the exact-search query
+    sets with their ground truth, the routed batches, the service, a
+    summary)."""
+    ds = fx.ds
+    summary = {}
+
+    # (a) exact search, held against numpy ground truth
+    t0 = time.perf_counter()
+    exact = {}
+    for pred in PREDICATES:
+        qs = make_queries(ds, pred, nq, seed=seed, with_ground_truth=False)
+        batch = QueryBatch.from_queryset(qs)
+        res = fx.search(batch, "prefilter")
+        check_result(ds, batch, res, f"prefilter {pred.name}")
+        same = hold_against_ground_truth(ds, batch, res.ids, n_gt)
+        exact[int(pred)] = dataclasses.replace(qs, ground_truth=res.ids)
+        emit("path.exact", pred=pred.name, q=batch.q,
+             search_s=res.timings["search_s"],
+             matched=int((res.ids >= 0).sum()),
+             gt_queries=n_gt, gt_identical=same)
+    summary["exact_s"] = time.perf_counter() - t0
+
+    # (b) the offline stage: table-B rows for this deployment dataset
+    t0 = time.perf_counter()
+    rows = []
+    for name in ("postfilter", "ivf_gamma"):
+        method = get_method(name)
+        for setting in method.param_settings():
+            for pred in PREDICATES:
+                r = bench.run_method(fx, method, setting, exact[int(pred)])
+                rows.append(r)
+                emit("path.table", method=name, ps=setting.ps_id,
+                     pred=pred.name, recall=r.mean_recall, qps=r.qps)
+    summary["table_s"] = time.perf_counter() - t0
+
+    # (c) online stage: route and serve fresh batches
+    t0 = time.perf_counter()
+    router = MLRouter.load(router_dir)
+    for r in rows:
+        router.table.add(ds.name, r.pred, r.method, r.ps_id, r.mean_recall,
+                         r.qps)
+    svc = RouterService(fx, router, t=0.9)
+    t1 = time.perf_counter()
+    F.dataset_features(ds, fx=fx)       # once per handle, cached on it
+    emit("path.dataset_features", seconds=time.perf_counter() - t1)
+    recalls, routed = {}, {}
+    for pred in PREDICATES:
+        qs = make_queries(ds, pred, nq, seed=seed + 1,
+                          with_ground_truth=False)
+        batch = routed[int(pred)] = QueryBatch.from_queryset(qs)
+        res = svc.search(batch)
+        check_result(ds, batch, res, f"routed {pred.name}")
+        truth = fx.search(batch, "prefilter").ids
+        rec = float(recall_at_k(res.ids, truth).mean())
+        recalls[pred.name] = rec
+        hist = {}
+        for m, ps in res.decisions:
+            hist[f"{m}/{ps}"] = hist.get(f"{m}/{ps}", 0) + 1
+        emit("path.routed", pred=pred.name, q=batch.q, recall_at_10=rec,
+             decisions=hist, route_s=res.timings["route_s"],
+             search_s=res.timings["search_s"])
+        if pred == Predicate.AND:        # mixed decisions
+            chunked = svc.search_chunked(batch, chunk=64)
+            if not (np.array_equal(chunked.ids, res.ids)
+                    and chunked.decisions == res.decisions):
+                raise AssertionError(
+                    "search_chunked disagrees with search on one batch")
+            emit("path.routed_chunked", pred=pred.name, q=batch.q, chunk=64,
+                 route_s=chunked.timings["route_s"],
+                 search_s=chunked.timings["search_s"],
+                 same_as_search=True)
+    summary["routed_s"] = time.perf_counter() - t0
+    summary["recall_at_10"] = recalls
+    return exact, routed, svc, summary
+
+
+def profile_phase(name: str, fn) -> None:
+    """`fn()` once under torch.profiler: wall time, the device's busy time
+    (the sum of its kernel, copy and fill intervals, which one stream runs
+    one at a time), the idle share, and the kernels that took most."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    avgs = sorted(prof.key_averages(),
+                  key=lambda a: a.self_device_time_total, reverse=True)
+    top = [[a.key[:70], a.self_device_time_total / 1e3, a.count]
+           for a in avgs[:6] if a.self_device_time_total > 0]
+    emit(f"profile.{name}", wall_s=wall, device_busy_s=busy_us / 1e6,
+         device_idle_share=1.0 - busy_us / 1e6 / wall, top_device_ms=top)
+
+
+# ---------------------------------------------------------------------------
+
+def check_features_across_devices(fx, routed: dict) -> None:
+    """The selectivity feature on the handle's device against the
+    group-table path the CPU takes: both exact, so bit-identical."""
+    for pred, batch in routed.items():
+        if not np.array_equal(
+                F.batch_selectivity(fx.ds, batch.bitmaps, pred, fx=fx),
+                F.batch_selectivity(fx.ds, batch.bitmaps, pred)):
+            raise AssertionError(f"selectivity features differ across "
+                                 f"devices, {PRED_NAMES[pred]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one "
+              "card", file=sys.stderr)
+        return 1
+
+    # parity is to fp32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0])
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit("build", seconds=time.perf_counter() - t0, library=os.path.relpath(
+        lib, ROOT), nvcc_seconds=_build.build_seconds, ptxas=ptxas)
+
+    t0 = time.perf_counter()
+    spec = dataclasses.replace(VALIDATION_SPECS["synth_192d"], n=ROWS,
+                               dim=192)
+    ds = synthesize(spec)
+    t_syn = time.perf_counter() - t0
+    fx = FilteredIndex(ds)                    # device="cuda", the default
+    dd = fx.device
+    torch.cuda.synchronize()
+    emit("data", spec=dataclasses.asdict(spec), n=ds.n, dim=ds.dim,
+         words=int(ds.bitmaps.shape[1]), groups=ds.n_groups,
+         synth_s=t_syn, upload_s=time.perf_counter() - t0 - t_syn,
+         device_mb=(dd.vectors.nbytes + dd.bitmaps.nbytes) / 1e6)
+
+    t0 = time.perf_counter()
+    errs = check_kernels(dev, ds.n, ds.dim, int(ds.bitmaps.shape[1]))
+    emit("kernels", seconds=time.perf_counter() - t0)
+
+    # (a)-(d): the main path, with both launch counts set to 0 just before
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mk.masked_topk_accum.launches = 0
+    bf.selectivity_count.launches = 0
+    exact, routed, svc, summary = run_path(
+        fx, os.path.join(ROOT, "src", "repro_torch", "assets", "router_ivf"),
+        QUERIES, GT_QUERIES)
+    torch.cuda.synchronize()
+    launches = {"masked_topk": mk.masked_topk_accum.launches,
+                "selectivity": bf.selectivity_count.launches}
+    emit("path", seconds=time.perf_counter() - t0, launches=launches,
+         peak_device_mb=torch.cuda.max_memory_allocated() / 1e6, **summary)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the main path never launched {name}")
+    check_features_across_devices(fx, routed)
+    emit("path.features_across_devices", selectivity="bit-identical")
+
+    # where the time goes: one pass of each path under the profiler
+    exact_batches = {p: QueryBatch.from_queryset(qs)
+                     for p, qs in exact.items()}
+    profile_phase("exact", lambda: [fx.search(b, "prefilter")
+                                    for b in exact_batches.values()])
+    profile_phase("routed", lambda: [svc.search(b)
+                                     for b in routed.values()])
+
+    t0 = time.perf_counter()
+    times = time_kernels(fx, exact_batches, dev)
+    emit("kernels.timing", seconds=time.perf_counter() - t0)
+
+    src = "src/repro_torch/kernels/csrc/"
+    rows = []
+    for name, source, replaces in (
+            ("masked_topk", src + "masked_topk.cu",
+             "src/repro/kernels/masked_topk.py:124"),
+            ("selectivity", src + "selectivity.cu",
+             "src/repro/kernels/bitmap_filter.py:36")):
+        t = times[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_s"] * 1e3,
+            "bound_by": ("operations" if t["ops_s"] >= t["bytes_s"]
+                         else "bytes"),
+            "library_ms": None,
+            "work": "one launch per predicate at the path's shapes, summed"})
+    emit("done", seconds=time.perf_counter() - t_all)
+    fx.close()
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

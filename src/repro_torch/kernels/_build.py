@@ -1,0 +1,119 @@
+"""Build and bind the port's CUDA kernels.
+
+The `.cu` sources under `csrc/` are compiled with nvcc for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``), one nvcc per source, all
+started together, and linked into one shared library with a plain C
+interface that `ctypes` loads. The build runs at first use into
+``build/repro_torch/`` at the root of the checkout; the library's file
+name carries a digest of the sources, so an edited source is never
+served by a stale library. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # name: (argtypes, restype); pointers and the stream as c_void_p
+    "masked_topk_launch": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    "masked_topk_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "selectivity_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "repro_torch_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lib: ctypes.CDLL | None = None
+build_log = ""          # nvcc's output of the build this process made
+build_seconds = 0.0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha1()
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                       "built")
+
+
+def build() -> Path:
+    """Compile the sources (if this digest is not built yet) and return
+    the shared library's path. Raises RuntimeError with nvcc's output
+    when a compile or the link fails."""
+    global build_log, build_seconds
+    lib_path = BUILD_DIR / f"kernels-{_digest()}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                 "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_lib),
+             *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib_path)     # atomic: concurrent builds agree
+    build_seconds = time.perf_counter() - t0
+    build_log = log + link.stdout
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch entry point returned a CUDA error."""
+    if code:
+        msg = library().repro_torch_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")

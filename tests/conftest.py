@@ -14,6 +14,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running sweeps (deselect with '-m \"not slow\"'; "
         "run with '-m slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels have no CPU "
+        "mode); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,93 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and its entry points never move to the CPU by themselves."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.ann.dataset import ANNDataset
+from repro_torch.ann.index import FilteredIndex
+from repro_torch.kernels import bitmap_filter as bf
+from repro_torch.kernels import masked_topk as mk
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_names():
+    out = []
+    for p in sorted(PORT.rglob("*.py")):
+        parts = p.relative_to(ROOT / "src").with_suffix("").parts
+        out.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return out
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    code = "\n".join([
+        "import importlib, sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['repro'] = None",
+        f"for name in {_module_names()!r}:",
+        "    importlib.import_module(name)",
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))",
+        "               for m in sys.modules if sys.modules[m] is not None)",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_source_imports_neither_jax_nor_reference(path):
+    bad = [ln for ln in path.read_text().splitlines() if IMPORT_RE.match(ln)]
+    assert not bad, f"{path.relative_to(ROOT)}: {bad}"
+
+
+def _small_ds():
+    rng = np.random.default_rng(0)
+    vecs = rng.normal(size=(40, 8)).astype(np.float32)
+    bms = rng.integers(0, 4, (40, 1)).astype(np.uint32)
+    return ANNDataset.from_packed("small", vecs, bms, 32)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = _small_ds()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FilteredIndex(ds)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FilteredIndex(ds, device="cuda:0")
+    fx = FilteredIndex(ds, device="cpu")
+    assert fx.device.vectors.device.type == "cpu"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """Only CPU tensors take the plain version; any other device raises
+    instead of falling back."""
+    meta = torch.device("meta")
+    q = torch.empty((2, 8), device=meta)
+    qb = torch.empty((2, 1), dtype=torch.int32, device=meta)
+    base = torch.empty((5, 8), device=meta)
+    norms = torch.empty((5,), device=meta)
+    bm = torch.empty((5, 1), dtype=torch.int32, device=meta)
+    before = (mk.masked_topk_accum.launches, bf.selectivity_count.launches)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        mk.masked_topk_accum(q, qb, base, norms, bm, pred=0, k=3)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bf.selectivity_count(qb, bm, pred=0)
+    assert (mk.masked_topk_accum.launches,
+            bf.selectivity_count.launches) == before
