@@ -22,8 +22,23 @@ not 0):
              of `postfilter` and `ivf_gamma` via `bench.run_method`; (c)
              routed serving, `RouterService(fx, router, t=0.9).search` and
              `search_chunked`, with the router artifact in
-             `src/repro_torch/assets/router_ivf/`; (d) both kernels' launch
+             `src/repro_torch/assets/router_ivf/`; (d) the kernels' launch
              counts, set to 0 just before (a) and read just after (c).
+6. profile — one pass of the exact and the routed path under
+             torch.profiler; then each kernel timed on the path's inputs.
+7. slice 2 — the sharded path's kernels against their plain versions
+             (`merge_topk` and `masked_topk_blocks` bit-identical on tie
+             grids, bf16 `masked_topk` too, and both held to summation
+             order at 1M × 192); then, each with the launch counts set to
+             0 just before and read just after: (a) the sharded path,
+             `ShardedFilteredIndex(ds, 4)` on the card, its exact search
+             bit-identical to the single index and
+             `ShardedRouterService.search` routing as `RouterService`
+             does; (b) `AsyncBatchQueue` over the sharded service, fed
+             single queries from 8 threads, answering as the batched
+             searches do; (c) `ops.masked_topk_multiblock` equal to
+             `ops.masked_topk`. Then profiles and times of these paths
+             and kernels.
 
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON line and `{"ok": true, "device": {...}}`. Without a CUDA device the
@@ -37,6 +52,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -54,7 +70,10 @@ from repro_torch.ann.index import FilteredIndex, QueryBatch  # noqa: E402
 from repro_torch.ann.predicates import (PREDICATES, Predicate,  # noqa: E402
                                         eval_predicate_np)
 from repro_torch.ann.registry import get_method  # noqa: E402
-from repro_torch.ann.service import RouterService  # noqa: E402
+from repro_torch.ann.service import (AsyncBatchQueue,  # noqa: E402
+                                     RouterService, ShardedRouterService)
+from repro_torch.ann.sharded import (ShardedFilteredIndex,  # noqa: E402
+                                     stack_candidates)
 from repro_torch.core import features as F  # noqa: E402
 from repro_torch.core.router import MLRouter  # noqa: E402
 from repro_torch.data.ann_synth import (VALIDATION_SPECS,  # noqa: E402
@@ -62,6 +81,7 @@ from repro_torch.data.ann_synth import (VALIDATION_SPECS,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitmap_filter as bf  # noqa: E402
 from repro_torch.kernels import masked_topk as mk  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): fp32
 # outside the tensor cores, and HBM3. 32-bit integer operations (add,
@@ -79,7 +99,20 @@ ROWS = 1_000_000
 QUERIES = 256
 GT_QUERIES = 32
 
+# The sharded path: the same 1M rows in 4 row shards, all on the one card
+# (as the JAX package puts every shard on the one device of a one-device
+# host); the queue takes QUEUE_PER_PRED single queries of each predicate.
+SHARDS = 4
+QUEUE_PER_PRED = 100
+
 PRED_NAMES = ("EQUALITY", "AND", "OR")
+
+# Every kernel wrapper and its launch counter, by the name the kernels'
+# JSON line gives it.
+KERNEL_WRAPPERS = {"masked_topk": mk.masked_topk_accum,
+                   "selectivity": bf.selectivity_count,
+                   "merge_topk": mk.merge_topk_accum,
+                   "masked_topk_blocks": mk.masked_topk_blocks}
 
 
 def emit(phase: str, **fields) -> None:
@@ -143,6 +176,13 @@ def selectivity_bound(q: int, n: int, w: int) -> tuple[float, float]:
     return q * n * w / INT32_OPS, nbytes / HBM_BYTES_S
 
 
+def merge_topk_bound(s: int, q: int, kk: int, k: int) -> tuple[float, float]:
+    """(operations time, bytes time) in seconds for one merge_topk launch:
+    [S, Q, K] dists and ids read once, [Q, k] written once; one compare
+    per candidate, which is nothing beside the bytes."""
+    return s * q * kk / INT32_OPS, (s * q * kk + q * k) * 8 / HBM_BYTES_S
+
+
 # ---------------------------------------------------------------------------
 # phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -194,6 +234,54 @@ def on_card(dev, *arrays):
         for a in arrays)
 
 
+def hold_to_plain(what: str, pred: int, args, gd, gi, pd, pi,
+                  tol: float) -> float:
+    """A top-k kernel's output (gd, gi) against its plain version's (pd,
+    pi) on random floats, where the two sum the scores in different
+    orders. [Q, k] lists, or [NB, Q, k] per-block lists. The fill is
+    identical and scores agree to `tol`; each returned id passes the
+    predicate, comes once per query and carries its own plain score; ids
+    may differ only where the plain scores of both ids lie within tol.
+    Returns the largest score difference."""
+    torch.cuda.synchronize()
+    if not torch.equal(gi < 0, pi < 0):
+        raise AssertionError(f"{what} fill differs, pred {pred}")
+    real = gi >= 0
+    err = float((gd - pd)[real].abs().max()) if bool(real.any()) else 0.0
+    if err > tol:
+        raise AssertionError(f"{what} scores differ by {err} > {tol}, "
+                             f"pred {pred}")
+    qv, qbt, base, norms, bmt = args
+    mask = mk._predicate_mask_block(bmt, qbt, pred)
+    scores = norms[None] - 2.0 * (qv.float() @ base.float().T)
+    if gi.dim() == 3:                  # [NB, Q, k] -> [Q, NB·k]
+        gd, gi, pi, real = (t.transpose(0, 1).reshape(gi.shape[1], -1)
+                            for t in (gd, gi, pi, real))
+    gil, pil = gi.long().clamp(min=0), pi.long().clamp(min=0)
+    got_s = scores.gather(1, gil)
+    differ = (gi != pi) & real
+    id_err = float((got_s - gd)[real].abs().max()) if bool(
+        real.any()) else 0.0
+    swap_err = float((got_s - scores.gather(1, pil))[differ].abs().max()
+                     ) if bool(differ.any()) else 0.0
+    if id_err > tol or swap_err > tol:
+        raise AssertionError(
+            f"{what} ids disagree with their scores, pred {pred}: "
+            f"{id_err} / {swap_err} > {tol}")
+    if not bool(mask.gather(1, gil)[real].all()):
+        raise AssertionError(f"{what} returned a row that fails the "
+                             f"predicate, pred {pred}")
+    kept = torch.sort(gi.masked_fill(~real, -1), dim=1).values
+    if bool(((kept[:, 1:] == kept[:, :-1]) & (kept[:, 1:] >= 0)).any()):
+        raise AssertionError(f"{what} returned an id twice, pred {pred}")
+    emit(f"kernels.{what}.random", pred=PRED_NAMES[pred], q=qv.shape[0],
+         n=base.shape[0], d=base.shape[1], w=bmt.shape[1],
+         k=pd.shape[-1], dtype=str(qv.dtype), max_abs_err=err, tol=tol,
+         ids_differing=int(differ.sum()), id_score_err=id_err,
+         swapped_score_err=swap_err, pairs_passing=int(mask.sum()))
+    return err
+
+
 def check_kernels(dev, n: int, d: int, w: int) -> dict:
     """Kernel vs plain version on the card. Returns max abs errors."""
     rng = np.random.default_rng(0)
@@ -231,41 +319,8 @@ def check_kernels(dev, n: int, d: int, w: int) -> dict:
         args = (vecs[0], qbt, vecs[1], vecs[2], bmt)
         gd, gi = mk.masked_topk_accum(*args, pred=pred, k=k)
         pd, pi = mk.masked_topk_plain(*args, pred=pred, k=k)
-        torch.cuda.synchronize()
-        if not torch.equal(gi < 0, pi < 0):
-            raise AssertionError(f"masked_topk fill differs, pred {pred}")
-        real = gi >= 0
-        err = float((gd - pd)[real].abs().max()) if bool(real.any()) else 0.0
-        if err > tol:
-            raise AssertionError(
-                f"masked_topk scores differ by {err} > {tol}, pred {pred}")
-        mask = mk._predicate_mask_block(bmt, qbt, pred)
-        scores = vecs[2][None] - 2.0 * (vecs[0] @ vecs[1].T)
-        gil, pil = gi.long().clamp(min=0), pi.long().clamp(min=0)
-        got_s = scores.gather(1, gil)
-        differ = (gi != pi) & real
-        id_err = float((got_s - gd)[real].abs().max()) if bool(
-            real.any()) else 0.0
-        swap_err = float((got_s - scores.gather(1, pil))[differ].abs().max()
-                         ) if bool(differ.any()) else 0.0
-        if id_err > tol or swap_err > tol:
-            raise AssertionError(
-                f"masked_topk ids disagree with their scores, pred {pred}: "
-                f"{id_err} / {swap_err} > {tol}")
-        if not bool(mask.gather(1, gil)[real].all()):
-            raise AssertionError(f"masked_topk returned a row that fails "
-                                 f"the predicate, pred {pred}")
-        for row, ok in zip(gi.tolist(), real.tolist()):
-            kept = [i for i, o in zip(row, ok) if o]
-            if len(set(kept)) != len(kept):
-                raise AssertionError(f"masked_topk returned an id twice, "
-                                     f"pred {pred}")
+        err = hold_to_plain("masked_topk", pred, args, gd, gi, pd, pi, tol)
         topk_err = max(topk_err, err)
-        emit("kernels.masked_topk.random", pred=PRED_NAMES[pred], q=q, n=n,
-             d=d, w=w, k=k, max_abs_err=err, tol=tol,
-             ids_differing=int(differ.sum()), id_score_err=id_err,
-             swapped_score_err=swap_err, pairs_passing=int(mask.sum()))
-        del mask, scores
     del vecs, args
 
     sel_cases = 0
@@ -284,6 +339,111 @@ def check_kernels(dev, n: int, d: int, w: int) -> dict:
          masked_topk_tie_grid="bit-identical", masked_topk_random_max_abs_err=
          topk_err, selectivity_cases=sel_cases, selectivity="exact")
     return {"masked_topk": topk_err, "selectivity": 0.0}
+
+
+def merge_grid(rng, s: int, q: int, kk: int):
+    """[S, Q, K] candidates on a coarse grid (ties within and across
+    shards) with ±0.0, NaN, ±inf, values past PAD_SCORE, repeated ids and
+    −1 slots. Returns (dists, ids) numpy."""
+    d = np.round(rng.normal(size=(s, q, kk)).astype(np.float32) ** 2, 1)
+    d[rng.random(d.shape) < 0.2] *= -1
+    zero = rng.random(d.shape) < 0.3
+    d[zero] = np.where(rng.random(int(zero.sum())) < 0.5, np.float32(0.0),
+                       np.float32(-0.0))
+    for val, frac in ((np.nan, 0.05), (np.inf, 0.05), (-np.inf, 0.03),
+                      (np.float32(3.2e38), 0.03)):
+        d[rng.random(d.shape) < frac] = val
+    ids = rng.integers(0, 10, (s, q, kk)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.1] = -1
+    return d, ids
+
+
+def check_slice2_kernels(dev, fx, batches: dict) -> dict:
+    """`merge_topk`, `masked_topk_blocks` and bf16 `masked_topk` against
+    their plain versions on the card. Returns max abs errors."""
+    rng = np.random.default_rng(1)
+    dd = fx.device
+    n, w = dd.bitmaps.shape
+    d = dd.vectors.shape[1]
+
+    # merge_topk: bit-identical ids and distance bits, including the
+    # sharded path's shape (4 shards, 256 queries, K = k = 10), the
+    # multi-block entry point's (977 blocks, 256 queries), the fused
+    # scan's fold (977 splits, 64 queries), both launch shapes at k = 128
+    # and k > S·K
+    merge_cases = 0
+    for s, q, kk, k in [(4, 256, 10, 10), (977, 256, 10, 10),
+                        (977, 64, 10, 10), (1, 11, 8, 8), (5, 64, 10, 41),
+                        (3, 9, 4, 10), (2, 300, 64, 128), (40, 7, 30, 128)]:
+        dt, it = on_card(dev, *merge_grid(rng, s, q, kk))
+        gd, gi = mk.merge_topk_accum(dt, it, k=k)
+        pd, pi = mk.merge_topk_plain(dt, it, k=k)
+        torch.cuda.synchronize()
+        if not (torch.equal(gi, pi) and torch.equal(
+                gd.view(torch.int32), pd.view(torch.int32))):
+            raise AssertionError(f"merge_topk differs from its plain "
+                                 f"version: S {s}, Q {q}, K {kk}, k {k}")
+        merge_cases += 1
+
+    # masked_topk_blocks and bf16 masked_topk: bit-identical on the tie
+    # grid (exact in bf16 too)
+    tie_cases = 0
+    for q, nn, bn, k in [(8, 512, 128, 10), (16, 256, 64, 41),
+                         (5, 1001, 256, 10), (37, 70001, 1024, 10),
+                         (3, 20011, 1024, 128)]:
+        args = on_card(dev, *tie_case(rng, q, nn))
+        b16 = (args[0].bfloat16(), args[1], args[2].bfloat16(), *args[3:])
+        for pred in range(3):
+            gd, gi = mk.masked_topk_blocks(*args, pred=pred, k=k, bn=bn)
+            pd, pi = mk.masked_topk_blocks_plain(*args, pred=pred, k=k,
+                                                 bn=bn)
+            hd, hi = mk.masked_topk_accum(*b16, pred=pred, k=k)
+            fd, fi = mk.masked_topk_plain(*b16, pred=pred, k=k)
+            torch.cuda.synchronize()
+            if not (torch.equal(gi, pi) and torch.equal(gd, pd)):
+                raise AssertionError(
+                    f"masked_topk_blocks differs from its plain version on "
+                    f"the tie grid: pred {pred}, q {q}, n {nn}, bn {bn}")
+            if not (torch.equal(hi, fi) and torch.equal(hd, fd)):
+                raise AssertionError(
+                    f"bf16 masked_topk differs from its plain version on "
+                    f"the tie grid: pred {pred}, q {q}, n {nn}, k {k}")
+            tie_cases += 1
+
+    # the paths' inputs over the 1M rows: masked_topk_blocks on each whole
+    # 256-query exact batch, as ops.masked_topk_multiblock gets it, and
+    # bf16 masked_topk on its first 64-query chunk, as exact search cuts
+    # it; scores from two summation orders, held as `hold_to_plain` says.
+    # bf16 products are exact in fp32, so the same bound holds for them,
+    # on norms up to 2^-8 larger once rounded to bf16 (hence the 1.01).
+    errs = {"masked_topk_blocks": 0.0, "masked_topk_bf16": 0.0}
+    base16 = dd.vectors.bfloat16()
+    for pred, batch in batches.items():
+        qv = to_device(batch.vectors, dev)
+        qb = to_device(batch.bitmaps, dev)
+        vn = float(dd.norms.max().sqrt())
+        qn = float(qv.norm(dim=1).max())
+        tol = 2 * d * 2.0 ** -24 * (vn * vn + 2 * qn * vn) * 1.01
+        args = (qv, qb, dd.vectors, dd.norms, dd.bitmaps)
+        gd, gi = mk.masked_topk_blocks(*args, pred=pred, k=batch.k)
+        pd, pi = mk.masked_topk_blocks_plain(*args, pred=pred, k=batch.k)
+        errs["masked_topk_blocks"] = max(errs["masked_topk_blocks"],
+                                         hold_to_plain(
+            "masked_topk_blocks", pred, args, gd, gi, pd, pi, tol))
+        del gd, gi, pd, pi
+        qv, qb = qv[:DEFAULT_QCHUNK], qb[:DEFAULT_QCHUNK]
+        args = (qv.bfloat16(), qb, base16, dd.norms, dd.bitmaps)
+        gd, gi = mk.masked_topk_accum(*args, pred=pred, k=10)
+        pd, pi = mk.masked_topk_plain(*args, pred=pred, k=10)
+        errs["masked_topk_bf16"] = max(errs["masked_topk_bf16"],
+                                       hold_to_plain(
+            "masked_topk_bf16", pred, args, gd, gi, pd, pi, tol))
+    del base16
+    emit("kernels.slice2_check", merge_topk_cases=merge_cases,
+         merge_topk="bit-identical", tie_grid_cases=tie_cases,
+         masked_topk_blocks_tie_grid="bit-identical",
+         masked_topk_bf16_tie_grid="bit-identical", **errs)
+    return {"merge_topk": 0.0, **errs}
 
 
 def time_kernels(fx, batches: dict, dev) -> dict:
@@ -336,6 +496,77 @@ def time_kernels(fx, batches: dict, dev) -> dict:
              selectivity_bound_ops_ms=sbound[0] * 1e3,
              selectivity_bound_bytes_ms=sbound[1] * 1e3)
     del flush
+    return out
+
+
+def time_slice2_kernels(fx, sfx, batches: dict, dev) -> dict:
+    """Kernel, plain-version and library times on the paths' inputs:
+    masked_topk_blocks on each predicate's whole 256-query exact batch (as
+    ops.masked_topk_multiblock gets it), bf16 masked_topk on its first
+    64-query chunk (as masked_topk is timed), merge_topk on the
+    [4, 256, 10] candidates the shards return for that batch. Returns
+    per-kernel sums over the three predicates."""
+    dd = fx.device
+    n, w = dd.bitmaps.shape
+    d = dd.vectors.shape[1]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+    out = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_s=0.0,
+                      ops_s=0.0, bytes_s=0.0)
+           for name in ("masked_topk_blocks", "merge_topk")}
+
+    def add(name, ms, plain_ms, bound, library_ms=0.0):
+        o = out[name]
+        o["ms"] += ms
+        o["plain_ms"] += plain_ms
+        o["library_ms"] += library_ms
+        o["bound_s"] += max(bound)
+        o["ops_s"] += bound[0]
+        o["bytes_s"] += bound[1]
+    prefilter = get_method("prefilter")
+    setting = prefilter.param_settings()[0]
+    base16 = dd.vectors.bfloat16()
+    for pred, batch in batches.items():
+        qv = to_device(batch.vectors, dev)
+        qb = to_device(batch.bitmaps, dev)
+        args = (qv, qb, dd.vectors, dd.norms, dd.bitmaps)
+        ms = time_ms(lambda: mk.masked_topk_blocks(*args, pred=pred,
+                                                   k=batch.k), 10, flush)
+        pms = time_ms(lambda: mk.masked_topk_blocks_plain(*args, pred=pred,
+                                                          k=batch.k),
+                      5, flush)
+        t_ops, t_bytes = masked_topk_bound(
+            mk._predicate_mask_block(dd.bitmaps, qb, pred), d, w, batch.k)
+        nb = -(-n // mk.DEFAULT_BN)
+        bound = (t_ops, t_bytes + (nb - 1) * batch.q * batch.k * 8
+                 / HBM_BYTES_S)
+        add("masked_topk_blocks", ms, pms, bound)
+        args16 = (qv[:DEFAULT_QCHUNK].bfloat16(), qb[:DEFAULT_QCHUNK],
+                  base16, dd.norms, dd.bitmaps)
+        bf16_ms = time_ms(lambda: mk.masked_topk_accum(*args16, pred=pred,
+                                                       k=batch.k), 10, flush)
+
+        ids, raw = stack_candidates(sfx.shard_candidates(prefilter, setting,
+                                                         batch))
+        dt, it = on_card(dev, raw, ids)
+        s_, q_, kk = dt.shape
+        flat = dt.transpose(0, 1).reshape(q_, s_ * kk).contiguous()
+        mms = time_ms(lambda: mk.merge_topk_accum(dt, it, k=batch.k), 20,
+                      flush)
+        mpms = time_ms(lambda: mk.merge_topk_plain(dt, it, k=batch.k), 10,
+                       flush)
+        lms = time_ms(lambda: torch.topk(flat, batch.k, dim=1,
+                                         largest=False), 20, flush)
+        mbound = merge_topk_bound(s_, q_, kk, batch.k)
+        add("merge_topk", mms, mpms, mbound, lms)
+        emit("kernels.time2", pred=PRED_NAMES[pred],
+             masked_topk_bf16_ms=bf16_ms,
+             masked_topk_blocks_q=batch.q, masked_topk_blocks_ms=ms,
+             masked_topk_blocks_plain_ms=pms,
+             masked_topk_blocks_bound_ms=max(bound) * 1e3,
+             merge_topk_shape=[s_, q_, kk], merge_topk_ms=mms,
+             merge_topk_plain_ms=mpms, merge_topk_torch_topk_ms=lms,
+             merge_topk_bound_ms=max(mbound) * 1e3)
+    del flush, base16
     return out
 
 
@@ -476,6 +707,183 @@ def run_path(fx, router_dir: str, nq: int, n_gt: int, seed: int = 11):
     return exact, routed, svc, summary
 
 
+def reset_launches() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def stage_summary(timings: dict) -> dict:
+    return {k: v for k, v in timings.items()
+            if k in ("route_s", "search_s", "shard_max_s", "merge_s")
+            or (k.startswith("shard") and k.endswith("_s"))}
+
+
+def single_index_answers(fx, svc, exact: dict, routed: dict) -> dict:
+    """What `run_sharded` holds the sharded path to, from the single index
+    `fx` and its service `svc`, made before the sharded path's launch
+    counts are set to 0: each exact batch's `fx.search(batch,
+    "prefilter")` and each routed batch's decisions."""
+    return {"exact": {p: fx.search(QueryBatch.from_queryset(qs), "prefilter")
+                      for p, qs in exact.items()},
+            "decisions": {p: svc.route(b) for p, b in routed.items()}}
+
+
+def run_sharded(sfx, ds, svc, exact: dict, routed: dict, want: dict) -> dict:
+    """The sharded path on the handle `sfx` over the dataset `ds`: (a)
+    exact search of each predicate's batch, bit-identical to the single
+    index's answer in `want` (`single_index_answers`); (b) routed serving
+    through `ShardedRouterService` with the router of the single-index
+    service `svc`: the decisions in `want`, every row passing its
+    predicate with float64-exact distances, recall@10 against the
+    sharded exact answer. Returns a summary."""
+    out = {"recall_at_10": {}}
+    t0 = time.perf_counter()
+    for pred, qs in exact.items():
+        batch = QueryBatch.from_queryset(qs)
+        res = sfx.search(batch, "prefilter")
+        single = want["exact"][pred]
+        if not (np.array_equal(res.ids, single.ids) and np.array_equal(
+                res.distances.view(np.int32),
+                single.distances.view(np.int32))):
+            raise AssertionError(f"sharded exact search differs from the "
+                                 f"single index, {PRED_NAMES[pred]}")
+        emit("sharded.exact", pred=PRED_NAMES[pred], q=batch.q,
+             bit_identical=True, **stage_summary(res.timings))
+    out["exact_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ssvc = ShardedRouterService(sfx, svc.router, t=svc.t)
+    # what the single index built in its table stage, built here first so
+    # that the routed timings below are those of serving: each shard's
+    # IVF index for each candidate method, the full-dataset feature
+    # tensors, the dataset-level features
+    t1 = time.perf_counter()
+    for name in ssvc.methods:
+        method = ssvc.methods[name]
+        for setting in method.param_settings():
+            for shard in sfx.shards:
+                shard.get_index(method, setting.build)
+    t2 = time.perf_counter()
+    F.dataset_features(ds, fx=sfx)       # once per handle, cached on it
+    sfx.device
+    torch.cuda.synchronize()
+    emit("sharded.build", shard_indexes_s=t2 - t1,
+         features_s=time.perf_counter() - t2,
+         built=sfx.stats()["shards"][0]["built_indexes"])
+    for pred, batch in routed.items():
+        res = ssvc.search(batch)
+        if res.decisions != want["decisions"][pred]:
+            raise AssertionError(f"sharded routing decisions differ from "
+                                 f"the single-index service's, "
+                                 f"{PRED_NAMES[pred]}")
+        check_result(ds, batch, res, f"sharded routed {PRED_NAMES[pred]}")
+        truth = sfx.search(batch, "prefilter").ids
+        rec = float(recall_at_k(res.ids, truth).mean())
+        out["recall_at_10"][PRED_NAMES[pred]] = rec
+        hist = {}
+        for m, ps in res.decisions:
+            hist[f"{m}/{ps}"] = hist.get(f"{m}/{ps}", 0) + 1
+        emit("sharded.routed", pred=PRED_NAMES[pred], q=batch.q,
+             recall_at_10=rec, decisions=hist, same_decisions=True,
+             **stage_summary(res.timings))
+    out["routed_s"] = time.perf_counter() - t0
+    return out
+
+
+def queue_workload(sfx, svc_sharded, exact: dict, n_per_pred: int) -> dict:
+    """The queue's single queries, `n_per_pred` of each predicate in a
+    mixed order, with what `run_queue` holds them to, made before the
+    queue's launch counts are set to 0: the batched route's decisions and
+    the batched exact search's ids."""
+    subs, want_dec, want_ids = [], [], []
+    for pred, qs in exact.items():
+        batch = QueryBatch(qs.vectors[:n_per_pred], qs.bitmaps[:n_per_pred],
+                           pred, qs.k)
+        want_dec += svc_sharded.route(batch)
+        want_ids += list(sfx.search(batch, "prefilter").ids)
+        subs += [(pred, batch.vectors[i], batch.bitmaps[i])
+                 for i in range(batch.q)]
+    return {"subs": subs, "decisions": want_dec, "ids": want_ids,
+            "order": np.random.default_rng(3).permutation(len(subs))}
+
+
+def run_queue(sfx, svc_sharded, work: dict, threads: int = 8) -> dict:
+    """`AsyncBatchQueue` over the sharded service: the single queries of
+    `work` (`queue_workload`) submitted from `threads` threads, once
+    routed (each answer's decision equals the batched route's) and once
+    with `method="prefilter"` (each answer's ids equal the batched exact
+    search's). Returns the two queues' stats."""
+    subs, order = work["subs"], work["order"]
+
+    def serve(queue):
+        futs = [None] * len(subs)
+
+        def work(t):
+            for j in order[t::threads]:
+                pred, v, b = subs[j]
+                futs[j] = queue.submit(v, b, pred)
+
+        workers = [threading.Thread(target=work, args=(t,))
+                   for t in range(threads)]
+        for th in workers:
+            th.start()
+        for th in workers:
+            th.join(timeout=300)
+        if any(th.is_alive() for th in workers):
+            raise AssertionError("queue submitters did not finish")
+        return [f.result(timeout=300) for f in futs]
+
+    stats = {}
+    t0 = time.perf_counter()
+    with AsyncBatchQueue(svc_sharded, max_batch=32, max_wait_ms=5) as q:
+        got = serve(q)
+        stats["routed"] = q.stats()
+    stats["routed"]["seconds"] = time.perf_counter() - t0
+    if [r.decision for r in got] != work["decisions"]:
+        raise AssertionError("queue decisions differ from the batched "
+                             "routed search's")
+    t0 = time.perf_counter()
+    with AsyncBatchQueue(sfx, max_batch=32, max_wait_ms=5,
+                         method="prefilter") as q:
+        got = serve(q)
+        stats["exact"] = q.stats()
+    stats["exact"]["seconds"] = time.perf_counter() - t0
+    if not all(np.array_equal(r.ids, ids)
+               for r, ids in zip(got, work["ids"])):
+        raise AssertionError("queue ids differ from the batched exact "
+                             "search's")
+    for name, st in stats.items():
+        emit(f"queue.{name}", queries=st["queries"], batches=st["batches"],
+             flush_reasons=st["flush_reasons"],
+             max_batch_seen=st["max_batch_seen"],
+             max_queue_depth=st["max_queue_depth"], seconds=st["seconds"],
+             threads=threads, same_as_batched=True)
+    return stats
+
+
+def run_multiblock(fx, exact_batches: dict) -> None:
+    """The second entry point of exact search: `ops.masked_topk_multiblock`
+    on each exact batch equals `ops.masked_topk` bit for bit."""
+    dd = fx.device
+    for pred, batch in exact_batches.items():
+        qv = to_device(batch.vectors, fx.torch_device)
+        qb = to_device(batch.bitmaps, fx.torch_device)
+        args = (qv, qb, dd.vectors, dd.norms, dd.bitmaps)
+        ids, dists = ops.masked_topk_multiblock(*args, pred=pred, k=batch.k)
+        want_i, want_d = ops.masked_topk(*args, pred=pred, k=batch.k)
+        if not (torch.equal(ids, want_i) and torch.equal(
+                dists.view(torch.int32), want_d.view(torch.int32))):
+            raise AssertionError(f"masked_topk_multiblock differs from "
+                                 f"masked_topk, {PRED_NAMES[pred]}")
+        emit("multiblock", pred=PRED_NAMES[pred], q=batch.q,
+             same_as_masked_topk=True)
+
+
 def profile_phase(name: str, fn) -> None:
     """`fn()` once under torch.profiler: wall time, the device's busy time
     (the sum of its kernel, copy and fill intervals, which one stream runs
@@ -552,21 +960,18 @@ def main() -> int:
     errs = check_kernels(dev, ds.n, ds.dim, int(ds.bitmaps.shape[1]))
     emit("kernels", seconds=time.perf_counter() - t0)
 
-    # (a)-(d): the main path, with both launch counts set to 0 just before
+    # (a)-(d): the main path, with every launch count set to 0 just before
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    mk.masked_topk_accum.launches = 0
-    bf.selectivity_count.launches = 0
+    reset_launches()
     exact, routed, svc, summary = run_path(
         fx, os.path.join(ROOT, "src", "repro_torch", "assets", "router_ivf"),
         QUERIES, GT_QUERIES)
-    torch.cuda.synchronize()
-    launches = {"masked_topk": mk.masked_topk_accum.launches,
-                "selectivity": bf.selectivity_count.launches}
+    launches = read_launches()
     emit("path", seconds=time.perf_counter() - t0, launches=launches,
          peak_device_mb=torch.cuda.max_memory_allocated() / 1e6, **summary)
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("masked_topk", "selectivity"):
+        if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
     check_features_across_devices(fx, routed)
     emit("path.features_across_devices", selectivity="bit-identical")
@@ -583,24 +988,114 @@ def main() -> int:
     times = time_kernels(fx, exact_batches, dev)
     emit("kernels.timing", seconds=time.perf_counter() - t0)
 
+    # slice 2: the kernels of the sharded path and of the multi-block
+    # entry point against their plain versions, on the card
+    t0 = time.perf_counter()
+    errs.update(check_slice2_kernels(dev, fx, exact_batches))
+    emit("kernels.slice2", seconds=time.perf_counter() - t0)
+
+    # the sharded path: 4 shards of the same rows, launch counts set to 0
+    # just before and read just after
+    t0 = time.perf_counter()
+    sfx = ShardedFilteredIndex(ds, SHARDS)    # device="cuda", the default
+    for fxj in sfx.shards:
+        fxj.device                            # upload the shards
+    torch.cuda.synchronize()
+    emit("sharded.open", shards=SHARDS, shard_rows=np.diff(
+        sfx.bounds).tolist(), devices=[str(f.torch_device)
+                                       for f in sfx.shards],
+         seconds=time.perf_counter() - t0)
+    want = single_index_answers(fx, svc, exact, routed)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sharded = run_sharded(sfx, ds, svc, exact, routed, want)
+    launches_sharded = read_launches()
+    emit("sharded", seconds=time.perf_counter() - t0,
+         launches=launches_sharded,
+         peak_device_mb=torch.cuda.max_memory_allocated() / 1e6, **sharded)
+    for name in ("masked_topk", "selectivity", "merge_topk"):
+        if launches_sharded[name] == 0:
+            raise AssertionError(f"the sharded path never launched {name}")
+
+    # the queue over the sharded service
+    ssvc = ShardedRouterService(sfx, svc.router, t=svc.t)
+    work = queue_workload(sfx, ssvc, exact, QUEUE_PER_PRED)
+    t0 = time.perf_counter()
+    reset_launches()
+    run_queue(sfx, ssvc, work)
+    launches_queue = read_launches()
+    emit("queue", seconds=time.perf_counter() - t0,
+         launches=launches_queue)
+    for name in ("masked_topk", "merge_topk"):
+        if launches_queue[name] == 0:
+            raise AssertionError(f"the queue never launched {name}")
+
+    # the multi-block entry point of exact search
+    t0 = time.perf_counter()
+    reset_launches()
+    run_multiblock(fx, exact_batches)
+    launches_mb = read_launches()
+    emit("multiblock.path", seconds=time.perf_counter() - t0,
+         launches=launches_mb)
+    for name in ("masked_topk_blocks", "merge_topk"):
+        if launches_mb[name] == 0:
+            raise AssertionError(f"the multi-block entry point never "
+                                 f"launched {name}")
+
+    profile_phase("sharded_exact", lambda: [sfx.search(b, "prefilter")
+                                            for b in exact_batches.values()])
+    profile_phase("sharded_routed", lambda: [ssvc.search(b)
+                                             for b in routed.values()])
+    dd = fx.device
+
+    def multiblock_pass():
+        for p, b in exact_batches.items():
+            ops.masked_topk_multiblock(
+                to_device(b.vectors, dev), to_device(b.bitmaps, dev),
+                dd.vectors, dd.norms, dd.bitmaps, pred=p, k=b.k)
+    profile_phase("multiblock", multiblock_pass)
+
+    t0 = time.perf_counter()
+    times.update(time_slice2_kernels(fx, sfx, exact_batches, dev))
+    emit("kernels.timing2", seconds=time.perf_counter() - t0)
+
     src = "src/repro_torch/kernels/csrc/"
     rows = []
-    for name, source, replaces in (
+    for name, source, replaces, n_launch, work in (
             ("masked_topk", src + "masked_topk.cu",
-             "src/repro/kernels/masked_topk.py:124"),
+             "src/repro/kernels/masked_topk.py:124", launches,
+             "one launch per predicate on the first 64-query chunk of the "
+             "exact batch over the 1M rows (exact search cuts its batches "
+             "into 64-query chunks), summed"),
             ("selectivity", src + "selectivity.cu",
-             "src/repro/kernels/bitmap_filter.py:36")):
+             "src/repro/kernels/bitmap_filter.py:36", launches,
+             "one launch per predicate on a whole 256-query batch over the "
+             "1M rows, as the routing features give it, summed"),
+            ("merge_topk", src + "merge_topk.cu",
+             "src/repro/kernels/masked_topk.py:191", launches_sharded,
+             "one launch per predicate on the [4, 256, 10] shard candidates "
+             "of the sharded exact batch, summed; launches from the sharded "
+             "path; library_ms is torch.topk over the shard-major [256, 40] "
+             "copy, which finds the same set with no tie order"),
+            ("masked_topk_blocks", src + "masked_topk.cu",
+             "src/repro/kernels/masked_topk.py:367", launches_mb,
+             "one launch per predicate on the whole 256-query exact batch "
+             "over the 1M rows, summed; launches from "
+             "ops.masked_topk_multiblock on the three exact batches")):
         t = times[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n_launch[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_s"] * 1e3,
             "bound_by": ("operations" if t["ops_s"] >= t["bytes_s"]
                          else "bytes"),
-            "library_ms": None,
-            "work": "one launch per predicate at the path's shapes, summed"})
+            "library_ms": (t["library_ms"] if name == "merge_topk"
+                           else None),
+            "work": work})
     emit("done", seconds=time.perf_counter() - t_all)
+    sfx.close()
     fx.close()
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -100,6 +100,47 @@ class ANNDataset:
     def n_groups(self) -> int:
         return int(self.group_bitmaps.shape[0])
 
+    def row_slice(self, start: int, stop: int,
+                  name: str | None = None) -> "ANNDataset":
+        """Contiguous row partition `[start, stop)` as its own dataset.
+
+        Because rows are stored group-sorted, a contiguous slice is itself
+        group-sorted, so the slice preserves row order exactly: local row
+        `i` of the shard is global row `start + i` of the parent. This is
+        what `ShardedFilteredIndex` relies on to globalise per-shard ids
+        with a plain offset. Group tables (bitmaps/start/size/lookup) are
+        rebuilt for the groups the slice intersects; a group cut by the
+        boundary keeps only its in-slice rows. Vectors, bitmaps and norms
+        are views of the parent's arrays.
+
+        Raises ValueError on an empty/out-of-range slice or if the rows
+        are not group-sorted (never the case for `build`/`synthesize`
+        outputs).
+        """
+        start, stop = int(start), int(stop)
+        if not (0 <= start < stop <= self.n):
+            raise ValueError(
+                f"row_slice [{start}, {stop}) out of range for n={self.n}")
+        gids = self.group_of[start:stop]
+        if np.any(np.diff(gids) < 0):
+            raise ValueError("row_slice requires group-sorted row order")
+        uniq = np.unique(gids)                     # sorted = slice order
+        new_gid = np.searchsorted(uniq, gids).astype(np.int32)
+        g = uniq.size
+        starts = np.searchsorted(new_gid, np.arange(g),
+                                 side="left").astype(np.int32)
+        ends = np.searchsorted(new_gid, np.arange(g),
+                               side="right").astype(np.int32)
+        group_bitmaps = self.group_bitmaps[uniq].copy()
+        lookup = {lb.bitmap_key(group_bitmaps[j]): j for j in range(g)}
+        return ANNDataset(
+            name=name or f"{self.name}[{start}:{stop}]",
+            vectors=self.vectors[start:stop], bitmaps=self.bitmaps[start:stop],
+            universe=self.universe, group_of=new_gid,
+            group_bitmaps=group_bitmaps, group_start=starts,
+            group_size=(ends - starts).astype(np.int32), group_lookup=lookup,
+            norms_sq=self.norms_sq[start:stop])
+
     def group_id_of_bitmap(self, query_bm: np.ndarray) -> int:
         """Exact-match group id for a query label set; -1 if absent."""
         return self.group_lookup.get(lb.bitmap_key(query_bm), -1)

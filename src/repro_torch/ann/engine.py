@@ -6,11 +6,14 @@
   `[Q, C, W]` temporaries.
 * query chunking: every method runs on fixed-size query chunks, with
   host-side padding of the tail chunk, as the JAX package does.
+* per-call stage timings, thread-local, that the sharded handle reports
+  and `RouterService.execute` drains into `SearchResult.timings`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -20,6 +23,41 @@ from repro_torch.ann.dataset import ANNDataset
 from repro_torch.ann.predicates import Predicate, eval_predicate
 
 DEFAULT_QCHUNK = 64
+
+
+# ---------------------------------------------------------------------------
+# per-call stage timing plumbing
+# ---------------------------------------------------------------------------
+
+class StageTimings(threading.local):
+    """Thread-local per-search stage timing accumulator.
+
+    Search internals call `add(stage, seconds)`; the outermost caller
+    drains with `pop()`. Thread-local so concurrent searches (the queue's
+    executor, sharded fan-out threads) never cross-contaminate."""
+
+    def __init__(self):
+        self.stages: dict[str, float] = {}
+
+    def add(self, stage: str, seconds: float) -> None:
+        self.stages[stage] = self.stages.get(stage, 0.0) + seconds
+
+    def pop(self) -> dict[str, float]:
+        out = dict(self.stages)
+        self.stages.clear()
+        return out
+
+
+STAGE_TIMINGS = StageTimings()
+
+
+def stage_add(stage: str, seconds: float) -> None:
+    STAGE_TIMINGS.add(stage, seconds)
+
+
+def pop_stage_timings() -> dict[str, float]:
+    """Drain the calling thread's accumulated per-stage timings."""
+    return STAGE_TIMINGS.pop()
 
 
 @dataclasses.dataclass(frozen=True)

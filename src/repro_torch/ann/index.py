@@ -142,8 +142,8 @@ def resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "FilteredIndex defaults to device='cuda' and no CUDA device is "
-            "available; pass device='cpu' to run on the CPU")
+            "the port's handles default to device='cuda' and no CUDA device "
+            "is available; pass device='cpu' to run on the CPU")
     return dev
 
 
@@ -245,6 +245,28 @@ class FilteredIndex:
         index never remaps rows, so keys are the row ids."""
         ids = np.asarray(ids, dtype=np.int64)
         return np.where(ids >= 0, ids, np.int64(-1))
+
+    def evict(self, method_name: str | None = None) -> int:
+        """Drop built indexes (all of one method, or every method).
+        Returns the number of evicted entries."""
+        keys = [k for k in self._indexes
+                if method_name is None or k[0] == method_name]
+        for k in keys:
+            del self._indexes[k]
+        return len(keys)
+
+    def stats(self) -> dict:
+        """Snapshot of the handle's owned state (for logging/debugging)."""
+        return {
+            "dataset": self.ds.name,
+            "n": self.ds.n,
+            "device": str(self.torch_device),
+            "device_resident": self._device is not None,
+            "built_indexes": sorted(k[0] for k in self._indexes),
+            "cached_uploads": len(self._arrays),
+            "features_cached": self._features is not None,
+            "closed": self._closed,
+        }
 
     # ---- search ----------------------------------------------------------
     def run_method(self, method, setting: ParamSetting,

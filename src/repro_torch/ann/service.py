@@ -10,12 +10,33 @@ and a method registry to a `FilteredIndex` and serves typed `QueryBatch`
 * `explain()` — per-query routing transparency: predicted recall r̂ per
   candidate, the threshold-passing set, the chosen (method, ps), and the
   offline benchmark-table row that justified it.
+
+Scaling layers on top of the facade:
+
+* `ShardedRouterService` — the same routed pipeline over a
+  `repro_torch.ann.sharded.ShardedFilteredIndex`: the batch is routed
+  once (full-dataset features), each chosen (method, ps) group executes
+  on every shard in parallel, and the per-shard candidates reduce
+  through the `ops.merge_topk` kernel.
+* `AsyncBatchQueue` — serves *concurrent single-query callers*: callers
+  `submit()` one query each and get a `Future`; a background worker
+  coalesces pending requests into micro-batches (flushing on `max_batch`
+  or `max_wait_ms`, whichever trips first) so the device sees batched
+  traffic without callers coordinating.
+
+The JAX package's services also take `telemetry=`, `tracer=`, `slo=` and
+`obslog=` hooks, and its queue probes a semantic cache and reports to a
+resource ledger; those serving-ops layers are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
+from concurrent.futures import Future
+from typing import NamedTuple
 
 import numpy as np
 
@@ -23,6 +44,8 @@ from repro_torch.ann import engine
 from repro_torch.ann import registry as registry_mod
 from repro_torch.ann.index import (FilteredIndex, QueryBatch, RoutingDecision,
                                    SearchResult, exact_distances)
+from repro_torch.ann.predicates import Predicate
+from repro_torch.ann.sharded import ShardedFilteredIndex
 
 
 @dataclasses.dataclass
@@ -41,7 +64,9 @@ class RouterService:
     """Serving facade over (FilteredIndex, MLRouter, method registry).
 
     Args:
-        index: the owned serving handle the service executes on.
+        index: the owned serving handle the service executes on — a
+            `FilteredIndex`, or anything exposing its `ds`/`run_method`
+            surface (`ShardedRouterService` passes a sharded handle).
         router: a `repro_torch.core.router.MLRouter`.
         t: default recall threshold T for Algorithm 2 (per-call
             overridable via the `t=` kwarg on search/route/explain).
@@ -83,10 +108,21 @@ class RouterService:
     def execute(self, batch: QueryBatch,
                 decisions: list[RoutingDecision]) -> SearchResult:
         """Run already-routed decisions: each (method, ps) group executes
-        as one batched search on the owned index."""
+        as one batched search on the owned index. This is the second
+        stage of the pipeline — `search` is `route` + `execute`, and the
+        `AsyncBatchQueue` worker calls the stages separately so batch t+1
+        routes while batch t executes.
+
+        An index that reports per-call stage timings through
+        `pop_stage_timings()` (the sharded handle: `shard{j}_s`,
+        `shard_max_s`, `merge_s`) has them folded into the result's
+        timings."""
         t1 = time.perf_counter()
         ids = np.full((batch.q, batch.k), -1, dtype=np.int32)
         raw = np.full((batch.q, batch.k), np.inf, dtype=np.float32)
+        pop = getattr(self.index, "pop_stage_timings", None)
+        if callable(pop):
+            pop()                        # clear this thread's stale slate
         groups: dict = {}
         for qi, d in enumerate(decisions):
             groups.setdefault(d, []).append(qi)
@@ -100,13 +136,15 @@ class RouterService:
                                                  batch.take(idxs))
             ids[idxs] = g_ids
             raw[idxs] = g_raw
+        keys = self.index.keys_of(ids)
         t2 = time.perf_counter()
+        timings = {"search_s": t2 - t1, "total_s": t2 - t1}
+        if callable(pop):
+            timings.update(pop())
         return SearchResult(
             ids=ids,
             distances=exact_distances(raw, ids, batch.vectors),
-            decisions=list(decisions),
-            timings={"search_s": t2 - t1, "total_s": t2 - t1},
-            keys=self.index.keys_of(ids))
+            decisions=list(decisions), timings=timings, keys=keys)
 
     def search(self, batch: QueryBatch, *,
                t: float | None = None) -> SearchResult:
@@ -171,3 +209,356 @@ class RouterService:
                 table_row=dict(row) if row else None,
                 threshold=t))
         return out
+
+
+class ShardedRouterService(RouterService):
+    """`RouterService` over a `repro_torch.ann.sharded.ShardedFilteredIndex`.
+
+    The routed pipeline is unchanged — and that is the point: the batch
+    is routed **once** (one fused MLP forward over full-dataset features;
+    on a card the `selectivity` kernel reads the sharded handle's
+    `feature_index` tensors on shard 0's device), and only the execution
+    of each chosen (method, ps) group fans out: every shard searches its
+    own row partition in parallel and the per-shard candidates reduce
+    through the `ops.merge_topk` kernel inside the handle's `run_method`.
+
+    Args:
+        index: a `ShardedFilteredIndex` (TypeError otherwise — a plain
+            `FilteredIndex` belongs in `RouterService`).
+        router / t / methods: as in `RouterService`.
+    """
+
+    def __init__(self, index, router, *, t: float = 0.9, methods=None):
+        if not isinstance(index, ShardedFilteredIndex):
+            raise TypeError(
+                f"ShardedRouterService needs a ShardedFilteredIndex; got "
+                f"{type(index).__name__} (use RouterService for "
+                f"single-index handles)")
+        super().__init__(index, router, t=t, methods=methods)
+
+
+# ---------------------------------------------------------------------------
+# async micro-batch queue — concurrent single-query callers
+# ---------------------------------------------------------------------------
+
+class QueryResult(NamedTuple):
+    """One caller's slice of a batched `SearchResult`.
+
+    * `ids` — [k] int32 base ids, −1 padded;
+    * `distances` — [k] float32 exact squared-L2 (NaN at −1 pad);
+    * `decision` — the query's `RoutingDecision` (None when the queue
+      serves a fixed method instead of a routed service);
+    * `keys` — [k] int64 stable external keys (−1 pad; None when the
+      backend has no key layer).
+    """
+    ids: np.ndarray
+    distances: np.ndarray
+    decision: RoutingDecision | None
+    keys: np.ndarray | None = None
+
+
+@dataclasses.dataclass
+class _PendingQuery:
+    vector: np.ndarray
+    bitmap: np.ndarray
+    pred: Predicate
+    k: int
+    t_submit: float
+    future: Future
+
+
+class _DaemonExecutor:
+    """Single daemon worker running submitted calls in order — the
+    execution stage of the queue's two-stage pipeline. Unlike a
+    `ThreadPoolExecutor` (non-daemon threads since 3.9) its thread is a
+    daemon, so a hung backend search can neither block interpreter exit
+    nor make `AsyncBatchQueue.close(timeout=...)` wait forever."""
+
+    def __init__(self, name: str):
+        self._q: queue.SimpleQueue = queue.SimpleQueue()
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    def submit(self, fn, *args) -> Future:
+        fut: Future = Future()
+        self._q.put((fut, fn, args))
+        return fut
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fut, fn, args = item
+            try:
+                fut.set_result(fn(*args))
+            except BaseException as e:   # delivered to the future's reader
+                fut.set_exception(e)
+
+    def shutdown(self, timeout: float | None = None) -> None:
+        self._q.put(None)
+        self._thread.join(timeout=timeout)
+
+
+class AsyncBatchQueue:
+    """Coalesces concurrent single-query `submit()` calls into
+    micro-batches.
+
+    A background worker drains the queue into one batched call per
+    (predicate, k) group whenever either knob trips:
+
+    * `max_batch` — this many requests are pending (flush immediately;
+      latency-optimal under load);
+    * `max_wait_ms` — the oldest pending request has waited this long
+      (bounds tail latency when traffic is sparse).
+
+    The worker is a **two-stage pipeline** (double-buffered): when the
+    backend separates routing from execution (`RouterService.route` /
+    `.execute`), the worker thread routes batch *t+1* while a dedicated
+    single-thread executor is still executing batch *t* — the routing
+    forward and the searches overlap instead of serialising. Backends
+    without the split (a bare `FilteredIndex` with `method=`) run both
+    stages on the executor.
+
+    Callers get a `concurrent.futures.Future` resolving to a
+    `QueryResult`; a failed batch propagates its exception to exactly
+    the futures in that batch.
+
+    Args:
+        service: the batched backend — a `RouterService` /
+            `ShardedRouterService` (routed), or, with `method=`, any
+            handle exposing `search(batch, method, setting)` such as
+            `FilteredIndex` / `ShardedFilteredIndex` (direct
+            single-method serving, no router needed).
+        max_batch: flush threshold and per-batch size cap (>= 1).
+        max_wait_ms: max age of the oldest pending request before a
+            flush (>= 0; 0 means flush on every submit).
+        method / setting: optional fixed method (+ optional setting)
+            for router-less serving.
+
+    Raises:
+        ValueError: on non-positive `max_batch` or negative
+            `max_wait_ms`.
+    """
+
+    def __init__(self, service, *, max_batch: int = 64,
+                 max_wait_ms: float = 5.0, method=None, setting=None):
+        if int(max_batch) < 1:
+            raise ValueError(f"max_batch must be >= 1; got {max_batch}")
+        if float(max_wait_ms) < 0:
+            raise ValueError(
+                f"max_wait_ms must be >= 0; got {max_wait_ms}")
+        self.service = service
+        self.max_batch = int(max_batch)
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        if method is None:
+            self._search = service.search
+        else:
+            self._search = lambda b: service.search(b, method, setting)
+        # routed services expose route()/execute() separately — that is
+        # what lets the worker route batch t+1 while t executes
+        self._pipelined = (method is None
+                           and callable(getattr(service, "route", None))
+                           and callable(getattr(service, "execute", None)))
+        self._cv = threading.Condition()
+        self._pending: list[_PendingQuery] = []
+        self._inflight: list[Future] = []
+        self._flush_req = False
+        self._closed = False
+        self._stats = {"queries": 0, "batches": 0, "max_batch_seen": 0,
+                       "max_queue_depth": 0, "flush_reasons": {}}
+        self._exec = _DaemonExecutor("async-batch-exec")
+        self._exec_fut: Future | None = None
+        self._worker = threading.Thread(
+            target=self._run, name="async-batch-queue", daemon=True)
+        self._worker.start()
+
+    # ---- caller surface --------------------------------------------------
+    def submit(self, vector, bitmap, pred, k: int = 10) -> Future:
+        """Enqueue one query; returns a Future of `QueryResult`.
+
+        Args:
+            vector: [d] float query embedding.
+            bitmap: [W] uint32 packed query label set.
+            pred: the query's `Predicate` (or its int value).
+            k: result width.
+        Raises: RuntimeError if the queue is closed; ValueError on
+            non-1-D vector/bitmap or a width the dataset does not have.
+        """
+        vector = np.asarray(vector, dtype=np.float32)
+        bitmap = np.asarray(bitmap, dtype=np.uint32)
+        if vector.ndim != 1 or bitmap.ndim != 1:
+            raise ValueError(
+                f"submit takes one query: vector [d] and bitmap [W]; got "
+                f"shapes {vector.shape} / {bitmap.shape}")
+        # reject dim mismatches here, per caller — inside the worker they
+        # would fail the whole co-batched (pred, k) group's futures
+        ds = getattr(self.service, "ds", None)
+        if ds is not None:
+            if vector.shape[0] != ds.dim:
+                raise ValueError(
+                    f"query vector dim {vector.shape[0]} does not match "
+                    f"dataset dim {ds.dim}")
+            if bitmap.shape[0] != ds.bitmaps.shape[1]:
+                raise ValueError(
+                    f"query bitmap width {bitmap.shape[0]} does not match "
+                    f"dataset width {ds.bitmaps.shape[1]}")
+        req = _PendingQuery(vector, bitmap, Predicate(pred), int(k),
+                            time.monotonic(), Future())
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("AsyncBatchQueue is closed")
+            self._pending.append(req)
+            self._stats["max_queue_depth"] = max(
+                self._stats["max_queue_depth"], len(self._pending))
+            self._cv.notify_all()
+        return req.future
+
+    def flush(self, timeout: float | None = 30.0) -> None:
+        """Force-drain everything currently pending and block until those
+        requests complete (their futures resolve; failures stay on the
+        futures, flush itself doesn't raise them)."""
+        import concurrent.futures as cf
+
+        with self._cv:
+            # pending + whatever the worker already took for execution —
+            # snapshotting _pending alone would miss an in-flight batch
+            futs = [p.future for p in self._pending] + list(self._inflight)
+            self._flush_req = True
+            self._cv.notify_all()
+        cf.wait(futs, timeout=timeout)
+
+    def close(self, timeout: float | None = 30.0) -> None:
+        """Stop accepting work, drain what's pending (both pipeline
+        stages), join the worker and the execution stage. The timeout
+        bounds the whole call; both stage threads are daemons, so a
+        hung backend search is abandoned rather than waited on.
+        Idempotent."""
+        t0 = time.monotonic()
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._worker.join(timeout=timeout)
+        left = (None if timeout is None
+                else max(0.0, timeout - (time.monotonic() - t0)))
+        self._exec.shutdown(timeout=left)
+
+    def __enter__(self) -> "AsyncBatchQueue":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def stats(self) -> dict:
+        """Counters: queries/batches served, largest batch, the
+        queue-depth high-water mark (`max_queue_depth` — how far
+        submissions ran ahead of the pipeline), and a flush-reason
+        histogram (max_batch / max_wait / flush / close)."""
+        with self._cv:
+            s = dict(self._stats)
+            s["flush_reasons"] = dict(self._stats["flush_reasons"])
+            s["pending"] = len(self._pending)
+        return s
+
+    # ---- worker: stage 1 (collect + route), stage 2 (execute) ------------
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                reason = None
+                while reason is None:
+                    if self._pending:
+                        if len(self._pending) >= self.max_batch:
+                            reason = "max_batch"
+                        elif self._closed:
+                            reason = "close"
+                        elif self._flush_req:
+                            reason = "flush"
+                        else:
+                            left = (self._pending[0].t_submit
+                                    + self.max_wait_s - time.monotonic())
+                            if left <= 0:
+                                reason = "max_wait"
+                            else:
+                                self._cv.wait(timeout=left)
+                    else:
+                        self._flush_req = False
+                        if self._closed:
+                            return
+                        self._cv.wait()
+                take = self._pending[: self.max_batch]
+                del self._pending[: len(take)]
+                self._inflight.extend(p.future for p in take)
+                if not self._pending:
+                    self._flush_req = False
+            # stage 1 in this thread: batch assembly + routing. This
+            # overlaps with the executor still running the previous
+            # batch — the double buffer.
+            staged = self._route_stage(take)
+            prev = self._exec_fut
+            if prev is not None:
+                try:               # depth-1 pipeline: wait out batch t-1
+                    prev.result()
+                except BaseException:
+                    pass           # its failures already reached callers
+            self._exec_fut = self._exec.submit(
+                self._exec_stage, staged, reason,
+                [p.future for p in take])
+
+    def _route_stage(self, take: list[_PendingQuery]) -> list:
+        """Group requests into per-(pred, k) batches and, when the
+        backend supports it, route them. Routing failures reject exactly
+        their group's futures here, before the execute stage."""
+        groups: dict = {}
+        for req in take:
+            groups.setdefault((req.pred, req.k), []).append(req)
+        staged = []
+        for (pred, k), reqs in groups.items():
+            try:
+                batch = QueryBatch(np.stack([r.vector for r in reqs]),
+                                   np.stack([r.bitmap for r in reqs]),
+                                   pred, k)
+                decisions = (self.service.route(batch)
+                             if self._pipelined else None)
+                staged.append((reqs, batch, decisions))
+            except BaseException as e:   # delivered to this group's callers
+                for req in reqs:
+                    if not req.future.done():
+                        req.future.set_exception(e)
+        return staged
+
+    def _exec_stage(self, staged: list, reason: str,
+                    futs: list[Future]) -> None:
+        try:
+            with self._cv:
+                self._stats["queries"] += sum(len(r) for r, _, _ in staged)
+                self._stats["batches"] += 1
+                self._stats["max_batch_seen"] = max(
+                    self._stats["max_batch_seen"], len(futs))
+                rs = self._stats["flush_reasons"]
+                rs[reason] = rs.get(reason, 0) + 1
+            for reqs, batch, decisions in staged:
+                try:
+                    res = (self.service.execute(batch, decisions)
+                           if decisions is not None
+                           else self._search(batch))
+                    for j, req in enumerate(reqs):
+                        dec = (res.decisions[j]
+                               if res.decisions is not None else None)
+                        if not req.future.done():   # caller may have cancelled
+                            req.future.set_result(QueryResult(
+                                ids=res.ids[j], distances=res.distances[j],
+                                decision=dec,
+                                keys=(res.keys[j] if res.keys is not None
+                                      else None)))
+                except BaseException as e:   # propagate to exactly this group
+                    for req in reqs:
+                        if not req.future.done():
+                            req.future.set_exception(e)
+        finally:
+            with self._cv:
+                for f in futs:
+                    try:
+                        self._inflight.remove(f)
+                    except ValueError:
+                        pass

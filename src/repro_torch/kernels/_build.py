@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -28,13 +29,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype); pointers and the stream as c_void_p
-    "masked_topk_launch": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    "masked_topk_blocks_launch": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "masked_topk_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "merge_topk_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "selectivity_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()   # shard threads may make the first launch
+_count_lock = threading.Lock()   # ... and count launches at the same time
 build_log = ""          # nvcc's output of the build this process made
 build_seconds = 0.0
 
@@ -102,14 +106,15 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
-    return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
 
 
 def check(code: int, what: str) -> None:
@@ -117,3 +122,10 @@ def check(code: int, what: str) -> None:
     if code:
         msg = library().repro_torch_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`, the launch counter of a kernel's
+    wrapper; shard threads launch at the same time."""
+    with _count_lock:
+        wrapper.launches += 1

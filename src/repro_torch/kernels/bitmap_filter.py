@@ -70,7 +70,7 @@ def selectivity_count(qbms: torch.Tensor, bitmaps: torch.Tensor, *,
             qbms.data_ptr(), bitmaps.data_ptr(), part.data_ptr(),
             out.data_ptr(), q, n, w, pred, splits, stream)
     _build.check(code, "selectivity")
-    selectivity_count.launches += 1
+    _build.count_launch(selectivity_count)
     return out
 
 

@@ -1,5 +1,6 @@
 // Shared device helpers for the port's kernels: predicate evaluation on
-// packed uint32 label words and a block-wide argmin over (score, id).
+// packed uint32 label words, per-thread top-k lists, and argmins over
+// (score, id) pairs within a lane group or a block.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,9 +14,39 @@ constexpr int kEmptyId = 0x7fffffff;   // id of an empty top-k slot
 constexpr float kPadScore = 3.0e38f;   // masked_topk's sentinel score
 
 // (score, id) lexicographic order: ties go to the lower row id, the
-// order `_fold_topk` of the TPU kernel produces.
-__device__ __forceinline__ bool pair_less(float a, int ia, float b, int ib) {
+// order `_fold_topk` of the TPU kernel produces. Also used on (key,
+// position) pairs with integer keys.
+template <typename K>
+__device__ __forceinline__ bool pair_less(K a, int ia, K b, int ib) {
   return a < b || (a == b && ia < ib);
+}
+
+// Insert (s, id) into the ascending list ls/li of length k, if it comes
+// before the list's last entry in `pair_less` order.
+template <typename K>
+__device__ __forceinline__ void list_insert(K* ls, int* li, int k, K s,
+                                            int id) {
+  if (!pair_less(s, id, ls[k - 1], li[k - 1])) return;
+  int p = k - 1;
+  while (p > 0 && pair_less(s, id, ls[p - 1], li[p - 1])) {
+    ls[p] = ls[p - 1];
+    li[p] = li[p - 1];
+    --p;
+  }
+  ls[p] = s;
+  li[p] = id;
+}
+
+// Argmin in `pair_less` order over WIDTH consecutive lanes (an aligned
+// group of a warp: xor offsets below WIDTH stay inside it); every lane
+// of the group gets the winner.
+template <int WIDTH, typename K>
+__device__ __forceinline__ void lanes_argmin(K& s, int& id) {
+  for (int off = WIDTH / 2; off > 0; off >>= 1) {
+    const K os = __shfl_xor_sync(kFullMask, s, off);
+    const int oi = __shfl_xor_sync(kFullMask, id, off);
+    if (pair_less(os, oi, s, id)) { s = os; id = oi; }
+  }
 }
 
 // PRED 0 = EQUALITY, 1 = AND (containment), 2 = OR (overlap), evaluated
@@ -38,29 +69,23 @@ __device__ __forceinline__ bool row_passes(const uint32_t* __restrict__ row,
   }
 }
 
-// Block-wide argmin of one (s, id) pair per thread; every thread gets the
-// winner back. `red_s`/`red_i` hold one slot per warp. blockDim.x must be
-// a multiple of 32. The order is a total order on distinct ids, so the
+// Block-wide argmin in `pair_less` order of one (s, id) pair per thread;
+// every thread gets the winner back. `red_s`/`red_i` hold one slot per
+// warp; `empty` is a key after every real one. blockDim.x must be a
+// multiple of 32. The order is a total order on distinct ids, so the
 // result does not depend on the reduction tree.
-__device__ __forceinline__ void block_argmin(float& s, int& id, float* red_s,
-                                             int* red_i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float os = __shfl_xor_sync(kFullMask, s, off);
-    const int oi = __shfl_xor_sync(kFullMask, id, off);
-    if (pair_less(os, oi, s, id)) { s = os; id = oi; }
-  }
+template <typename K>
+__device__ __forceinline__ void block_argmin(K& s, int& id, K* red_s,
+                                             int* red_i, K empty) {
+  lanes_argmin<32>(s, id);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) { red_s[warp] = s; red_i[warp] = id; }
   __syncthreads();
   if (warp == 0) {
     const int nw = blockDim.x >> 5;
-    s = lane < nw ? red_s[lane] : INFINITY;
+    s = lane < nw ? red_s[lane] : empty;
     id = lane < nw ? red_i[lane] : kEmptyId;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_xor_sync(kFullMask, s, off);
-      const int oi = __shfl_xor_sync(kFullMask, id, off);
-      if (pair_less(os, oi, s, id)) { s = os; id = oi; }
-    }
+    lanes_argmin<32>(s, id);
     if (lane == 0) { red_s[0] = s; red_i[0] = id; }
   }
   __syncthreads();

@@ -37,12 +37,31 @@
 //     lowest row id, as `_fold_topk` does.
 //   * Many short splits keep the blocks even when the passing rows
 //     bunch together (a group-sorted base puts all rows of one label set
-//     side by side). A second kernel folds the per-split lists of each
-//     query the same way. Slots past the match count come back as
-//     (PAD_SCORE, -1), and a score at or above PAD_SCORE as id -1, as in
-//     the TPU kernel.
+//     side by side). Each (split, query) list goes to its own slot of
+//     [splits, Q, k], with (PAD_SCORE, -1) in the slots past the split's
+//     match count and id -1 at a score at or above PAD_SCORE, as in the
+//     TPU kernel. The merge kernel (csrc/merge_topk.cu) folds these lists
+//     in (score, split, slot) order, which is (score, row id) order here;
+//     a score at or above PAD_SCORE comes out as (PAD_SCORE, -1).
 // The output does not depend on the number of splits or on the order in
 // which blocks run.
+//
+// bf16 inputs. The TPU kernel takes bf16 queries and rows and
+// accumulates the dot in fp32 (`preferred_element_type=jnp.float32`).
+// Here the element type is a template parameter: a bf16 value is
+// converted to fp32 as it is staged into shared memory, so a bf16 x bf16
+// product is exact in fp32 and the FMAs are those of the fp32 path. Norms
+// stay fp32.
+//
+// Per-block output. The same scan also replaces
+// src/repro/kernels/masked_topk.py::masked_topk_blocks (the Pallas TPU
+// kernel `_block_kernel`): the top-k of every (query, block of bn rows),
+// [NB, Q, k], with no fold, is the scan's output with splits of exactly
+// bn rows; its fill is the one `_block_kernel`'s k-step min extraction
+// leaves. Its bound is that of the fused scan plus the [NB, Q, k] output
+// (8 bytes a slot: 20 MB for 256 queries at 1M rows, k = 10).
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -60,17 +79,24 @@ static_assert(kLanesPerQ == 16, "the per-query shuffle tree spans 16 lanes");
 
 __host__ __device__ inline int padded_stride(int d) { return d | 1; }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 inline size_t smem_bytes(int d, int w) {
   return sizeof(float) * ((size_t)(kQG + kTileRows) * padded_stride(d) +
                           kTileRows) +
          sizeof(uint32_t) * (size_t)(kQG + kTileRows) * w;
 }
 
-template <int PRED, int KMAX>
+// part_d/part_i [splits, nq, k]: one sorted list per (split, query),
+// (PAD_SCORE, -1) in empty slots and id -1 at a score >= PAD_SCORE.
+template <int PRED, int KMAX, typename T>
 __global__ void __launch_bounds__(kThreads)
-masked_topk_split_kernel(const float* __restrict__ q,
+masked_topk_split_kernel(const T* __restrict__ q,
                          const uint32_t* __restrict__ qbm,
-                         const float* __restrict__ base,
+                         const T* __restrict__ base,
                          const float* __restrict__ norms,
                          const uint32_t* __restrict__ bm,
                          float* __restrict__ part_d,
@@ -85,11 +111,11 @@ masked_topk_split_kernel(const float* __restrict__ q,
   uint32_t* rb = qb + kQG * w;                    // [kTileRows][w]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * kQG, split = blockIdx.y, splits = gridDim.y;
+  const int q0 = blockIdx.x * kQG, split = blockIdx.y;
   const int nqb = min(kQG, nq - q0);
   for (int r = warp; r < kQG; r += kThreads / 32)
     for (int c = lane; c < d; c += 32)
-      qs[r * ds + c] = r < nqb ? q[(size_t)(q0 + r) * d + c] : 0.f;
+      qs[r * ds + c] = r < nqb ? to_f32(q[(size_t)(q0 + r) * d + c]) : 0.f;
   for (int i = tid; i < kQG * w; i += kThreads)
     qb[i] = i < nqb * w ? qbm[(size_t)q0 * w + i] : 0u;
 
@@ -118,7 +144,7 @@ masked_topk_split_kernel(const float* __restrict__ q,
     if (!__syncthreads_or(any)) continue;   // no pair passes: skip the rows
     for (int r = warp; r < nr; r += kThreads / 32)
       for (int c = lane; c < d; c += 32)
-        rs[r * ds + c] = base[(size_t)(t0 + r) * d + c];
+        rs[r * ds + c] = to_f32(base[(size_t)(t0 + r) * d + c]);
     for (int i = tid; i < nr; i += kThreads) rn[i] = norms[t0 + i];
     __syncthreads();
     bool mine = false;
@@ -138,105 +164,86 @@ masked_topk_split_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < kRowsPerThread; ++j) {
       if (!pass[j]) continue;
-      const int r = sub + j * kLanesPerQ, row = t0 + r;
-      const float s = rn[r] - 2.0f * acc[j];
-      if (pair_less(s, row, ld[k - 1], li[k - 1])) {
-        int p = k - 1;
-        while (p > 0 && pair_less(s, row, ld[p - 1], li[p - 1])) {
-          ld[p] = ld[p - 1];
-          li[p] = li[p - 1];
-          --p;
-        }
-        ld[p] = s;
-        li[p] = row;
-      }
+      const int r = sub + j * kLanesPerQ;
+      list_insert(ld, li, k, rn[r] - 2.0f * acc[j], t0 + r);
     }
   }
 
   // k rounds of an argmin over the list heads of each query's 16 threads
   // (a half-warp: xor offsets below 16 stay inside it)
-  const size_t out0 = ((size_t)(q0 + qloc) * splits + split) * k;
+  const size_t out0 = ((size_t)split * nq + q0 + qloc) * k;
   int head = 0;
   for (int j = 0; j < k; ++j) {
     float s = head < k ? ld[head] : INFINITY;
     int id = head < k ? li[head] : kEmptyId;
-    for (int off = kLanesPerQ / 2; off > 0; off >>= 1) {
-      const float os = __shfl_xor_sync(kFullMask, s, off);
-      const int oi = __shfl_xor_sync(kFullMask, id, off);
-      if (pair_less(os, oi, s, id)) { s = os; id = oi; }
+    lanes_argmin<kLanesPerQ>(s, id);
+    if (live && sub == 0) {
+      const bool empty = id == kEmptyId;
+      part_d[out0 + j] = empty ? kPadScore : s;
+      part_i[out0 + j] = (empty || s >= kPadScore) ? -1 : id;
     }
-    if (live && sub == 0) { part_d[out0 + j] = s; part_i[out0 + j] = id; }
     if (id != kEmptyId && head < k && li[head] == id) ++head;
   }
 }
 
-// Fold the [splits, k] sorted lists of one query into its final top-k.
-__global__ void masked_topk_merge_kernel(const float* __restrict__ part_d,
-                                         const int* __restrict__ part_i,
-                                         float* __restrict__ out_d,
-                                         int* __restrict__ out_i, int splits,
-                                         int k) {
-  __shared__ float red_s[32];
-  __shared__ int red_i[32];
-  const int qi = blockIdx.x, t = threadIdx.x;
-  const float* pd = part_d + (size_t)qi * splits * k + (size_t)t * k;
-  const int* pi = part_i + (size_t)qi * splits * k + (size_t)t * k;
-  int head = 0;
-  for (int j = 0; j < k; ++j) {
-    const bool has = t < splits && head < k;
-    float s = has ? pd[head] : INFINITY;
-    int id = has ? pi[head] : kEmptyId;
-    block_argmin(s, id, red_s, red_i);
-    if (t == 0) {
-      const bool empty = id == kEmptyId;
-      out_d[(size_t)qi * k + j] = empty ? kPadScore : s;
-      out_i[(size_t)qi * k + j] = (empty || s >= kPadScore) ? -1 : id;
-    }
-    if (id != kEmptyId && has && pi[head] == id) ++head;
-  }
-}
+// The split kernel's arguments, passed down the template dispatch.
+struct SplitArgs {
+  const void* q;
+  const uint32_t* qbm;
+  const void* base;
+  const float* norms;
+  const uint32_t* bm;
+  float* part_d;
+  int* part_i;
+  int nq, n, d, w, k, rows_per_split;
+};
 
-template <int PRED, int KMAX>
+template <int PRED, int KMAX, typename T>
 cudaError_t launch_split(dim3 grid, size_t smem, cudaStream_t stream,
-                         const float* q, const uint32_t* qbm,
-                         const float* base, const float* norms,
-                         const uint32_t* bm, float* part_d, int* part_i,
-                         int nq, int n, int d, int w, int k,
-                         int rows_per_split) {
-  auto kernel = masked_topk_split_kernel<PRED, KMAX>;
+                         const SplitArgs& a) {
+  auto kernel = masked_topk_split_kernel<PRED, KMAX, T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(q, qbm, base, norms, bm, part_d,
-                                           part_i, nq, n, d, w, k,
-                                           rows_per_split);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), a.qbm, static_cast<const T*>(a.base),
+      a.norms, a.bm, a.part_d, a.part_i, a.nq, a.n, a.d, a.w, a.k,
+      a.rows_per_split);
   return cudaGetLastError();
 }
 
-template <int PRED>
-cudaError_t launch_pred(dim3 grid, size_t smem, cudaStream_t stream,
-                        const float* q, const uint32_t* qbm,
-                        const float* base, const float* norms,
-                        const uint32_t* bm, float* part_d, int* part_i,
-                        int nq, int n, int d, int w, int k,
-                        int rows_per_split) {
-  if (k <= 16)
-    return launch_split<PRED, 16>(grid, smem, stream, q, qbm, base, norms,
-                                  bm, part_d, part_i, nq, n, d, w, k,
-                                  rows_per_split);
-  if (k <= 32)
-    return launch_split<PRED, 32>(grid, smem, stream, q, qbm, base, norms,
-                                  bm, part_d, part_i, nq, n, d, w, k,
-                                  rows_per_split);
-  if (k <= 64)
-    return launch_split<PRED, 64>(grid, smem, stream, q, qbm, base, norms,
-                                  bm, part_d, part_i, nq, n, d, w, k,
-                                  rows_per_split);
-  return launch_split<PRED, 128>(grid, smem, stream, q, qbm, base, norms,
-                                 bm, part_d, part_i, nq, n, d, w, k,
-                                 rows_per_split);
+template <int PRED, typename T>
+cudaError_t launch_k(dim3 grid, size_t smem, cudaStream_t stream,
+                     const SplitArgs& a) {
+  if (a.k <= 16) return launch_split<PRED, 16, T>(grid, smem, stream, a);
+  if (a.k <= 32) return launch_split<PRED, 32, T>(grid, smem, stream, a);
+  if (a.k <= 64) return launch_split<PRED, 64, T>(grid, smem, stream, a);
+  return launch_split<PRED, 128, T>(grid, smem, stream, a);
+}
+
+template <typename T>
+cudaError_t launch_pred(int pred, dim3 grid, size_t smem,
+                        cudaStream_t stream, const SplitArgs& a) {
+  if (pred == 0) return launch_k<0, T>(grid, smem, stream, a);
+  if (pred == 1) return launch_k<1, T>(grid, smem, stream, a);
+  return launch_k<2, T>(grid, smem, stream, a);
+}
+
+// dtype 0: float32 queries and rows; 1: bfloat16.
+cudaError_t launch_scan(int dtype, int pred, int splits, size_t smem,
+                        cudaStream_t stream, const SplitArgs& a) {
+  const dim3 grid((a.nq + kQG - 1) / kQG, splits);
+  if (dtype == 1)
+    return launch_pred<__nv_bfloat16>(pred, grid, smem, stream, a);
+  return launch_pred<float>(pred, grid, smem, stream, a);
+}
+
+bool bad_shape(int nq, int n, int d, int w, int pred, int k, int dtype,
+               size_t smem) {
+  return nq <= 0 || n < 0 || d <= 0 || w <= 0 || k < 1 || k > 128 ||
+         pred < 0 || pred > 2 || dtype < 0 || dtype > 1 || smem > kMaxSmem;
 }
 
 }  // namespace
@@ -252,39 +259,28 @@ extern "C" long long masked_topk_smem_bytes(int d, int w) {
   return static_cast<long long>(repro_torch::smem_bytes(d, w));
 }
 
-// qvecs [nq, d] f32, qbms [nq, w] u32, base [n, d] f32, norms [n] f32,
-// bitmaps [n, w] u32 -> out_d [nq, k] f32, out_i [nq, k] i32, through the
-// scratch lists part_d/part_i [nq, splits, k]. All pointers are device
-// memory; nothing is allocated or synchronised here. Returns the
-// cudaError_t of the launches (0 on success).
-extern "C" int masked_topk_launch(const float* q, const uint32_t* qbm,
-                                  const float* base, const float* norms,
-                                  const uint32_t* bm, float* part_d,
-                                  int* part_i, float* out_d, int* out_i,
-                                  int nq, int n, int d, int w, int pred, int k,
-                                  int splits, void* stream_ptr) {
+// qvecs [nq, d] f32 or bf16 (dtype 0 or 1), qbms [nq, w] u32, base [n, d]
+// of the queries' type, norms [n] f32, bitmaps [n, w] u32 -> out_d
+// [nb, nq, k] f32, out_i [nb, nq, k] i32: the sorted top-k of each
+// (block of bn rows, query), nb = max(1, ceil(n / bn)) (the last block
+// ragged); (PAD_SCORE, -1) past each block's match count. All pointers
+// are device memory; nothing is allocated or synchronised here. Returns
+// the cudaError_t of the launch (0 on success).
+extern "C" int masked_topk_blocks_launch(const void* q, const uint32_t* qbm,
+                                         const void* base, const float* norms,
+                                         const uint32_t* bm, float* out_d,
+                                         int* out_i, int nq, int n, int d,
+                                         int w, int pred, int k, int bn,
+                                         int dtype, void* stream_ptr) {
   using namespace repro_torch;
   const size_t smem = smem_bytes(d, w);
-  if (nq <= 0 || n < 0 || d <= 0 || w <= 0 || k < 1 || k > 128 ||
-      splits < 1 || splits > 1024 || pred < 0 || pred > 2 ||
-      smem > kMaxSmem)
+  if (bad_shape(nq, n, d, w, pred, k, dtype, smem) || bn < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int rows_per_split = (n + splits - 1) / splits;
-  const dim3 grid((nq + kQG - 1) / kQG, splits);
-  cudaError_t err;
-  if (pred == 0)
-    err = launch_pred<0>(grid, smem, stream, q, qbm, base, norms, bm, part_d,
-                         part_i, nq, n, d, w, k, rows_per_split);
-  else if (pred == 1)
-    err = launch_pred<1>(grid, smem, stream, q, qbm, base, norms, bm, part_d,
-                         part_i, nq, n, d, w, k, rows_per_split);
-  else
-    err = launch_pred<2>(grid, smem, stream, q, qbm, base, norms, bm, part_d,
-                         part_i, nq, n, d, w, k, rows_per_split);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int merge_threads = ((splits + 31) / 32) * 32;
-  masked_topk_merge_kernel<<<nq, merge_threads, 0, stream>>>(
-      part_d, part_i, out_d, out_i, splits, k);
-  return static_cast<int>(cudaGetLastError());
+  const long long nb = n > 0 ? ((long long)n + bn - 1) / bn : 1;
+  if (nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const SplitArgs a{q, qbm, base, norms, bm, out_d, out_i, nq,
+                    n, d,   w,    k,     bn};
+  return static_cast<int>(launch_scan(dtype, pred, (int)nb, smem,
+                                      static_cast<cudaStream_t>(stream_ptr),
+                                      a));
 }

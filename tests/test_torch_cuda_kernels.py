@@ -103,6 +103,24 @@ def test_masked_topk_kernel_random_fp32_within_sum_order(cuda):
     assert all(len(set(row)) == len(row) for row in gi.tolist())
 
 
+def test_masked_topk_kernel_scores_past_pad_score(cuda):
+    """Rows whose score is +inf, NaN or past PAD_SCORE (overflowing or
+    NaN norms) come back as (PAD_SCORE, -1) from the kernel's merge and
+    from the plain version alike, after every real candidate."""
+    qv, qb, base, norms, bm = _tie_case(np.random.default_rng(5), 9, 3000)
+    norms[::7] = np.inf
+    norms[3::11] = np.nan
+    norms[5::13] = np.float32(3.3e38)
+    args = _on(cuda, (qv, qb, base, norms, bm))
+    for pred in (0, 1, 2):
+        gd, gi = mk.masked_topk_accum(*args, pred=pred, k=41)
+        pd, pi = mk.masked_topk_plain(*args, pred=pred, k=41)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, pi)
+        assert torch.equal(gd, pd)
+        assert bool((gd[gi < 0] == mk.PAD_SCORE).all())
+
+
 @pytest.mark.parametrize("d", [5, 400])
 def test_masked_topk_kernel_odd_and_wide_dims(cuda, d):
     """An odd D, and a D whose shared-memory tiles pass 48 KB (the
@@ -132,7 +150,8 @@ def test_masked_topk_kernel_counts_launches_and_checks(cuda):
     with pytest.raises(ValueError, match="128"):
         mk.masked_topk_accum(*args, pred=1, k=129)
     with pytest.raises(TypeError):
-        mk.masked_topk_accum(args[0].bfloat16(), *args[1:], pred=1, k=5)
+        mk.masked_topk_accum(args[0].half(), args[1], args[2].half(),
+                             *args[3:], pred=1, k=5)
     with pytest.raises(ValueError, match="contiguous"):
         mk.masked_topk_accum(args[0].T.contiguous().T, *args[1:], pred=1,
                              k=5)
@@ -153,3 +172,136 @@ def test_selectivity_kernel_exact(cuda, pred, q, n):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert bf.selectivity_count.launches == before + 1
+
+
+@pytest.mark.parametrize("pred", [0, 1, 2])
+@pytest.mark.parametrize("q,n,k", [(7, 256, 41), (25, 1024, 10),
+                                   (37, 70001, 10)])
+def test_masked_topk_kernel_bf16(cuda, pred, q, n, k):
+    """bf16 rows and queries: the kernel converts each value to fp32 as it
+    stages it, so on the tie grid (exact in bf16) it equals its plain
+    version, and the fp32 kernel, bit for bit."""
+    args = _on(cuda, _tie_case(np.random.default_rng(q + n), q, n))
+    b16 = (args[0].bfloat16(), args[1], args[2].bfloat16(), *args[3:])
+    gd, gi = mk.masked_topk_accum(*b16, pred=pred, k=k)
+    pd, pi = mk.masked_topk_plain(*b16, pred=pred, k=k)
+    fd, fi = mk.masked_topk_accum(*args, pred=pred, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, pi) and torch.equal(gd, pd)
+    assert torch.equal(gi, fi) and torch.equal(gd, fd)
+
+
+def test_masked_topk_kernel_bf16_random(cuda):
+    """Random bf16: products are exact in fp32, so the kernel and its
+    plain version differ only by summation order (2·D·u·Σ|terms|)."""
+    rng = np.random.default_rng(3)
+    q, n, d, w = 16, 50000, 192, 7
+    qv = rng.normal(size=(q, d)).astype(np.float32)
+    base = rng.normal(size=(n, d)).astype(np.float32)
+    norms = (base.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    bm = (rng.random((n, w)) < 0.5).astype(np.uint32) * 5
+    qb = np.full((q, w), 4, np.uint32)
+    args = _on(cuda, (qv, qb, base, norms, bm))
+    b16 = (args[0].bfloat16(), args[1], args[2].bfloat16(), *args[3:])
+    gd, gi = mk.masked_topk_accum(*b16, pred=2, k=10)
+    pd, pi = mk.masked_topk_plain(*b16, pred=2, k=10)
+    scale = norms.max() + 2 * np.sqrt(norms.max() * (qv ** 2).sum(1).max())
+    # bf16 rounding makes a vector's norm larger by at most 2^-8
+    tol = 2 * d * 2.0 ** -24 * scale * 1.01
+    assert torch.equal(gi >= 0, pi >= 0)
+    assert torch.allclose(gd, pd, rtol=0, atol=tol)
+    scores = args[3][None] - 2.0 * (b16[0].float() @ b16[2].float().T)
+    assert bool((torch.abs(scores.gather(1, gi.long()) - gd) <= tol).all())
+
+
+@pytest.mark.parametrize("pred", [0, 1, 2])
+@pytest.mark.parametrize("q,n,bn,k", [(8, 512, 128, 10), (16, 256, 64, 41),
+                                      (8, 64, 16, 20), (5, 1001, 256, 10),
+                                      (37, 70001, 1024, 10),
+                                      (3, 20011, 1024, 128)])
+def test_masked_topk_blocks_kernel_bitwise_on_tie_grid(cuda, pred, q, n, bn,
+                                                       k):
+    args = _on(cuda, _tie_case(np.random.default_rng(q * 3 + n + k), q, n))
+    before = mk.masked_topk_blocks.launches
+    gd, gi = mk.masked_topk_blocks(*args, pred=pred, k=k, bn=bn)
+    pd, pi = mk.masked_topk_blocks_plain(*args, pred=pred, k=k, bn=bn)
+    torch.cuda.synchronize()
+    assert mk.masked_topk_blocks.launches == before + 1
+    assert gd.shape == (-(-n // bn), q, k)
+    assert torch.equal(gi, pi)
+    assert torch.equal(gd.view(torch.int32), pd.view(torch.int32))
+    ids, dists = ops.masked_topk_multiblock(*args, pred=pred, k=k, bn=bn)
+    want_i, want_d = ops.masked_topk(*args, pred=pred, k=k)
+    assert torch.equal(ids, want_i) and torch.equal(dists, want_d)
+
+
+def _merge_grid(rng, s, q, kk):
+    """Coarse-grid distances (ties within and across shards), ±0.0, NaN,
+    ±inf, values past PAD_SCORE, repeated ids and −1 slots."""
+    d = np.round(rng.normal(size=(s, q, kk)).astype(np.float32) ** 2, 1)
+    d[rng.random(d.shape) < 0.2] *= -1
+    zero = rng.random(d.shape) < 0.3
+    d[zero] = np.where(rng.random(int(zero.sum())) < 0.5, np.float32(0.0),
+                       np.float32(-0.0))
+    for val, frac in ((np.nan, 0.05), (np.inf, 0.05), (-np.inf, 0.03),
+                      (np.float32(3.2e38), 0.03)):
+        d[rng.random(d.shape) < frac] = val
+    ids = rng.integers(0, 10, (s, q, kk)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.1] = -1
+    return d, ids
+
+
+@pytest.mark.parametrize("s,q,kk,k", [(1, 11, 8, 8), (2, 8, 10, 10),
+                                      (3, 25, 41, 10), (5, 64, 10, 41),
+                                      (4, 256, 10, 10), (977, 64, 10, 10),
+                                      (977, 256, 10, 10), (40, 7, 30, 128),
+                                      (1500, 3, 4, 10), (2, 300, 64, 128),
+                                      (3, 9, 4, 10)])
+def test_merge_topk_kernel_bitwise(cuda, s, q, kk, k):
+    rng = np.random.default_rng(s * 31 + q + kk)
+    d, ids = _merge_grid(rng, s, q, kk)
+    dt, it = torch.from_numpy(d).to(cuda), torch.from_numpy(ids).to(cuda)
+    before = mk.merge_topk_accum.launches
+    gd, gi = mk.merge_topk_accum(dt, it, k=k)
+    pd, pi = mk.merge_topk_plain(dt, it, k=k)
+    torch.cuda.synchronize()
+    assert mk.merge_topk_accum.launches == before + 1
+    assert torch.equal(gi, pi)
+    assert torch.equal(gd.view(torch.int32), pd.view(torch.int32))
+    # and through the entry point, against the CPU's plain version
+    ci, cd = ops.merge_topk(it, dt, k=k)
+    wi, wd = ops.merge_topk(it.cpu(), dt.cpu(), k=k)
+    assert torch.equal(ci.cpu(), wi)
+    assert torch.equal(cd.cpu().view(torch.int32), wd.view(torch.int32))
+
+
+@pytest.mark.parametrize("s,q,kk,k", [(4, 256, 10, 10), (977, 64, 10, 10),
+                                      (40, 7, 30, 128)])
+def test_merge_topk_kernel_sorted_lists(cuda, s, q, kk, k):
+    """Lists already ascending, as shards and the fused scan hand them
+    over: the kernel steps through them, with the same result as its
+    plain version."""
+    rng = np.random.default_rng(s + q + kk)
+    d, ids = _merge_grid(rng, s, q, kk)
+    d = np.where(np.isnan(d) | (ids < 0), np.float32(mk.PAD_SCORE), d)
+    key = mk.order_key(torch.from_numpy(
+        np.minimum(d, np.float32(mk.PAD_SCORE)))).numpy()
+    order = np.argsort(key, axis=2, kind="stable")   # -0.0 before +0.0
+    d = np.take_along_axis(d, order, 2)
+    ids = np.take_along_axis(ids, order, 2)
+    dt, it = torch.from_numpy(d).to(cuda), torch.from_numpy(ids).to(cuda)
+    gd, gi = mk.merge_topk_accum(dt, it, k=k)
+    pd, pi = mk.merge_topk_plain(dt, it, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, pi)
+    assert torch.equal(gd.view(torch.int32), pd.view(torch.int32))
+
+
+def test_merge_topk_kernel_signed_zero_order(cuda):
+    d = torch.tensor([[[0.0, -0.0, 1.0]], [[-0.0, 0.0, -1.0]]], device=cuda)
+    ids = torch.tensor([[[10, 11, 12]], [[20, 21, 22]]], dtype=torch.int32,
+                       device=cuda)
+    gd, gi = mk.merge_topk_accum(d, ids, k=6)
+    assert gi.tolist() == [[22, 11, 20, 10, 21, 12]]
+    assert torch.signbit(gd[0]).tolist() == [True, True, True, False,
+                                             False, False]

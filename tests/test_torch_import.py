@@ -84,10 +84,17 @@ def test_kernel_wrappers_refuse_other_devices():
     base = torch.empty((5, 8), device=meta)
     norms = torch.empty((5,), device=meta)
     bm = torch.empty((5, 1), dtype=torch.int32, device=meta)
-    before = (mk.masked_topk_accum.launches, bf.selectivity_count.launches)
+    wrappers = (mk.masked_topk_accum, mk.masked_topk_blocks,
+                mk.merge_topk_accum, bf.selectivity_count)
+    before = [fn.launches for fn in wrappers]
     with pytest.raises(ValueError, match="cuda or cpu"):
         mk.masked_topk_accum(q, qb, base, norms, bm, pred=0, k=3)
     with pytest.raises(ValueError, match="cuda or cpu"):
+        mk.masked_topk_blocks(q, qb, base, norms, bm, pred=0, k=3)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        mk.merge_topk_accum(torch.empty((2, 3, 4), device=meta),
+                            torch.empty((2, 3, 4), dtype=torch.int32,
+                                        device=meta), k=3)
+    with pytest.raises(ValueError, match="cuda or cpu"):
         bf.selectivity_count(qb, bm, pred=0)
-    assert (mk.masked_topk_accum.launches,
-            bf.selectivity_count.launches) == before
+    assert [fn.launches for fn in wrappers] == before
