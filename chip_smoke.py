@@ -39,6 +39,25 @@ not 0):
              searches do; (c) `ops.masked_topk_multiblock` equal to
              `ops.masked_topk`. Then profiles and times of these paths
              and kernels.
+8. live    — the live slice: `fused_live` (both variants) and the
+             k > 128 masked top-k against their plain versions (bit-
+             identical on grids, and held to summation order on the live
+             path's inputs); then `LiveFilteredIndex(ds, delta_chunk=512)`
+             on the card: 65,536 upserts (base rows picked by a seeded
+             generator, + 0.01, with their bitmaps), 1,000 base and 500
+             delta deletes, and the reference answers (the exact batches
+             read with the chunk pruner off, recall truths, the queue's
+             batched answers); then, with the launch counts set to 0 just
+             before and read just after, the three exact batches fused
+             with the chunk pruner (bit-identical to the unpruned read,
+             the first GT_QUERIES against a host exact answer over the
+             live rows), routed search through `RouterService` and single
+             queries through `AsyncBatchQueue` over the live handle; the
+             staged read, counted on its own and bit-identical to the
+             fused; a snapshot read across a further write, and
+             `compact()` (the compacted index equal to a fresh
+             `FilteredIndex` over its dataset, `last_remap` translating
+             ids). Then profiles and times of the live path and kernels.
 
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON line and `{"ok": true, "device": {...}}`. Without a CUDA device the
@@ -67,6 +86,7 @@ from repro_torch.ann import bench  # noqa: E402
 from repro_torch.ann.dataset import ground_truth_topk, recall_at_k  # noqa: E402
 from repro_torch.ann.engine import DEFAULT_QCHUNK, to_device  # noqa: E402
 from repro_torch.ann.index import FilteredIndex, QueryBatch  # noqa: E402
+from repro_torch.ann.live import LiveFilteredIndex  # noqa: E402
 from repro_torch.ann.predicates import (PREDICATES, Predicate,  # noqa: E402
                                         eval_predicate_np)
 from repro_torch.ann.registry import get_method  # noqa: E402
@@ -105,6 +125,15 @@ GT_QUERIES = 32
 SHARDS = 4
 QUEUE_PER_PRED = 100
 
+# The live path: upserts into the 1M-row base (50 MB of delta vectors,
+# 128 sealed chunks of LIVE_CHUNK rows, past the pruner's 4 x LIVE_CHUNK),
+# then deletes that make the base overfetch k + 1,000 -> 1,016 and the
+# staged delta overfetch k + 500 -> 512, both past MAX_K.
+LIVE_UPSERTS = 65_536
+LIVE_BASE_DELETES = 1_000
+LIVE_DELTA_DELETES = 500
+LIVE_CHUNK = 512
+
 PRED_NAMES = ("EQUALITY", "AND", "OR")
 
 # Every kernel wrapper and its launch counter, by the name the kernels'
@@ -112,7 +141,9 @@ PRED_NAMES = ("EQUALITY", "AND", "OR")
 KERNEL_WRAPPERS = {"masked_topk": mk.masked_topk_accum,
                    "selectivity": bf.selectivity_count,
                    "merge_topk": mk.merge_topk_accum,
-                   "masked_topk_blocks": mk.masked_topk_blocks}
+                   "masked_topk_blocks": mk.masked_topk_blocks,
+                   "fused_live": mk.fused_live_accum,
+                   "masked_topk_large": mk.masked_topk_large}
 
 
 def emit(phase: str, **fields) -> None:
@@ -796,10 +827,10 @@ def run_sharded(sfx, ds, svc, exact: dict, routed: dict, want: dict) -> dict:
 
 
 def queue_workload(sfx, svc_sharded, exact: dict, n_per_pred: int) -> dict:
-    """The queue's single queries, `n_per_pred` of each predicate in a
-    mixed order, with what `run_queue` holds them to, made before the
-    queue's launch counts are set to 0: the batched route's decisions and
-    the batched exact search's ids."""
+    """The queue's single queries, `n_per_pred` of each predicate (from
+    the query sets or batches `exact`) in a mixed order, with what
+    `run_queue` holds them to: the batched route's decisions and the
+    batched exact search's ids."""
     subs, want_dec, want_ids = [], [], []
     for pred, qs in exact.items():
         batch = QueryBatch(qs.vectors[:n_per_pred], qs.bitmaps[:n_per_pred],
@@ -812,7 +843,8 @@ def queue_workload(sfx, svc_sharded, exact: dict, n_per_pred: int) -> dict:
             "order": np.random.default_rng(3).permutation(len(subs))}
 
 
-def run_queue(sfx, svc_sharded, work: dict, threads: int = 8) -> dict:
+def run_queue(sfx, svc_sharded, work: dict, threads: int = 8,
+              label: str = "queue") -> dict:
     """`AsyncBatchQueue` over the sharded service: the single queries of
     `work` (`queue_workload`) submitted from `threads` threads, once
     routed (each answer's decision equals the batched route's) and once
@@ -858,7 +890,7 @@ def run_queue(sfx, svc_sharded, work: dict, threads: int = 8) -> dict:
         raise AssertionError("queue ids differ from the batched exact "
                              "search's")
     for name, st in stats.items():
-        emit(f"queue.{name}", queries=st["queries"], batches=st["batches"],
+        emit(f"{label}.{name}", queries=st["queries"], batches=st["batches"],
              flush_reasons=st["flush_reasons"],
              max_batch_seen=st["max_batch_seen"],
              max_queue_depth=st["max_queue_depth"], seconds=st["seconds"],
@@ -882,6 +914,535 @@ def run_multiblock(fx, exact_batches: dict) -> None:
                                  f"masked_topk, {PRED_NAMES[pred]}")
         emit("multiblock", pred=PRED_NAMES[pred], q=batch.q,
              same_as_masked_topk=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the live slice
+# ---------------------------------------------------------------------------
+
+def fused_live_bound(mask, d: int, w: int, kb: int, k: int, tw: int,
+                     has_sel: bool) -> tuple[float, float]:
+    """(operations time, bytes time) in seconds for one fused_live launch
+    whose scanned delta rows give `mask`, the [Q, NS] passing and live
+    (query, row) pairs: the base candidates (8 bytes a slot), the scanned
+    rows' label words (and `sel`), the tombstone words, the vectors and
+    norms of rows some query passes and the queries, each read once;
+    [Q, k] written once; fp32 work 2·D + 2 per passing pair, one 32-bit
+    op per (query, scanned row, word) for the predicate and one per
+    (query, candidate) for the fold."""
+    q, ns = mask.shape
+    rows = int(mask.any(0).sum())
+    pairs = int(mask.sum())
+    nbytes = (q * kb * 8 + ns * w * 4 + (ns * 4 if has_sel else 0)
+              + tw * 4 + rows * (d + 1) * 4 + q * (d + w) * 4 + q * k * 8)
+    t_ops = (pairs * (2 * d + 2) / FP32_FLOPS
+             + (q * ns * w + q * kb) / INT32_OPS)
+    return t_ops, nbytes / HBM_BYTES_S
+
+
+def live_grid(rng, q: int, kb: int, nd: int, base_n: int, ns=None,
+              d: int = 24, w: int = 2):
+    """Fused-live inputs on the tie grid: base candidates with −1 ids,
+    NaN, ±inf, values past PAD_SCORE and ±0.0; a delta mirror with
+    duplicated rows; one in five base and delta ids tombstoned; an
+    optional pruner-style sel (sorted rows, −1 pads). Returns numpy
+    (qv, qb, cand_d, cand_i, dvec, dnorm, dbm, tomb_words, sel)."""
+    qv, qb, dvec, dn, dbm = tie_case(rng, q, max(nd, 1), d, w)
+    dvec, dn, dbm = dvec[:nd], dn[:nd], dbm[:nd]
+    cd = (rng.integers(-40, 400, (q, kb)) / 4.0).astype(np.float32)
+    ci = rng.integers(0, base_n, (q, kb)).astype(np.int32)
+    for val, frac in ((np.nan, 0.03), (np.inf, 0.03), (-np.inf, 0.02),
+                      (np.float32(3.1e38), 0.02), (np.float32(-0.0), 0.05),
+                      (np.float32(0.0), 0.05)):
+        cd[rng.random(cd.shape) < frac] = val
+    ci[rng.random(ci.shape) < 0.1] = -1
+    tomb = rng.random(base_n + nd) < 0.2
+    words = np.zeros(-(-(base_n + nd) // 4096) * 128, np.uint32)
+    packed = np.packbits(tomb, bitorder="little")
+    words.view(np.uint8)[: packed.size] = packed
+    sel = None
+    if ns is not None:
+        sel = np.sort(rng.choice(nd, size=min(ns, nd), replace=False)
+                      ).astype(np.int32)
+        sel = np.concatenate([sel, np.full(3, -1, np.int32)])
+    return qv, qb, cd, ci, dvec, dn, dbm, words, sel
+
+
+def check_live_grids(dev) -> int:
+    """`fused_live` (both variants) and the k > MAX_K masked top-k against
+    their plain versions on grids: ids and distance bits. Returns the
+    number of cases."""
+    rng = np.random.default_rng(2)
+    cases = 0
+    for q, n, k in [(3, 2000, 129), (64, 100_003, 1016), (5, 1001, 10_000),
+                    (2, 40_000, 20_000), (17, 5000, 512)]:
+        args = on_card(dev, *tie_case(rng, q, n))
+        for pred in range(3):
+            gd, gi = mk.masked_topk_large(*args, pred=pred, k=k)
+            pd, pi = mk.masked_topk_plain(*args, pred=pred, k=k)
+            torch.cuda.synchronize()
+            if not (torch.equal(gi, pi) and torch.equal(gd, pd)):
+                raise AssertionError(
+                    f"masked_topk_large differs from its plain version on "
+                    f"the tie grid: pred {pred}, q {q}, n {n}, k {k}")
+            cases += 1
+    base_n = 5000
+    for q, kb, nd, k, ns in [(5, 1, 200, 10, None), (37, 1016, 5000, 10, None),
+                             (20, 1016, 70_000, 10, 30_000),
+                             (3, 50, 2000, 128, 700), (6, 20, 0, 10, None),
+                             (256, 1016, 65_536, 10, 20_000)]:
+        *arrays, sel = live_grid(rng, q, kb, nd, base_n, ns)
+        args = on_card(dev, *arrays)
+        s = None if sel is None else on_card(dev, sel)[0]
+        for pred in range(3):
+            gd, gi = mk.fused_live_accum(*args, base_n=base_n, sel=s,
+                                         pred=pred, k=k)
+            pd, pi = mk.fused_live_plain(*args, base_n=base_n, sel=s,
+                                         pred=pred, k=k)
+            torch.cuda.synchronize()
+            if not (torch.equal(gi, pi) and torch.equal(
+                    gd.view(torch.int32), pd.view(torch.int32))):
+                raise AssertionError(
+                    f"fused_live differs from its plain version on the "
+                    f"grid: pred {pred}, q {q}, KB {kb}, ND {nd}, k {k}, "
+                    f"sel {ns}")
+            cases += 1
+    return cases
+
+
+def live_kernel_inputs(live, batch):
+    """The fused_live kernel's inputs on the live read path for `batch`,
+    made as `LiveFilteredIndex._run_fused` makes them: the base
+    overfetch's candidates, the delta mirror, the packed tombstones, the
+    pruner's rows (None when it keeps every row). Returns (args, kwargs)
+    for `mk.fused_live_accum` / `mk.fused_live_plain`, plus the
+    overfetch width."""
+    dev = live.torch_device
+    prefilter = get_method("prefilter")
+    with live.snapshot() as snap:
+        dead = int(snap.tombstones[: snap.base_n].sum())
+        b_ids, b_raw = live._run_base(prefilter, prefilter.param_settings()[0],
+                                      batch, snap, dead)
+        dvec, dnorm, dbm = snap.delta.device_view(snap.delta_rows)
+        tomb = live._tomb_words(snap)
+        sel = live._delta_select(snap, batch, b_ids, b_raw)
+        base_n = snap.base_n
+    args = (to_device(batch.vectors, dev), to_device(batch.bitmaps, dev),
+            to_device(b_raw, dev), to_device(b_ids, dev), dvec, dnorm, dbm,
+            tomb)
+    kw = {"base_n": base_n, "sel": None if sel is None else to_device(sel, dev)}
+    return args, kw, b_ids.shape[1]
+
+
+def own_scores(args, kw, ids):
+    """Each returned id's own score: a base id its candidate distance, a
+    delta id its ‖v‖² − 2·q·v in float64. [Q, k] float64, +inf at −1."""
+    qv, _, cd, ci, dvec, dnorm, _, _ = args
+    base_n = kw["base_n"]
+    out = torch.full(ids.shape, float("inf"), dtype=torch.float64,
+                     device=ids.device)
+    is_base = (ids >= 0) & (ids < base_n)
+    match = (ids[:, :, None] == ci[:, None, :]) & is_base[:, :, None]
+    base_d = torch.where(match, cd[:, None, :].double(),
+                         torch.full_like(match, float("inf"),
+                                         dtype=torch.float64)).amin(-1)
+    out = torch.where(is_base, base_d, out)
+    rows = (ids.long() - base_n).clamp(0, max(dvec.shape[0] - 1, 0))
+    dots = (qv.double()[:, None, :] * dvec.double()[rows]).sum(-1)
+    delta_d = dnorm.double()[rows] - 2.0 * dots
+    return torch.where(ids >= base_n, delta_d, out)
+
+
+def hold_fused_to_plain(pred: int, args, kw, gd, gi, pd, pi,
+                        tol: float) -> float:
+    """The fused kernel's output against its plain version's on the live
+    path's random floats, where the delta dots are summed in different
+    orders: the fill is identical, distances agree to `tol`, every
+    returned id carries its own score (its candidate distance, or its
+    delta row's float64 score, within tol), passes the predicate, is
+    live and comes once; ids may differ only where both ids' own scores
+    lie within tol. Returns the largest distance difference."""
+    torch.cuda.synchronize()
+    if not torch.equal(gi < 0, pi < 0):
+        raise AssertionError(f"fused_live fill differs, pred {pred}")
+    real = gi >= 0
+    err = float((gd - pd)[real].abs().max()) if bool(real.any()) else 0.0
+    own_g, own_p = own_scores(args, kw, gi), own_scores(args, kw, pi)
+    id_err = float((own_g - gd.double())[real].abs().max()) if bool(
+        real.any()) else 0.0
+    differ = (gi != pi) & real
+    swap_err = float((own_g - own_p)[differ].abs().max()) if bool(
+        differ.any()) else 0.0
+    if max(err, id_err, swap_err) > tol:
+        raise AssertionError(f"fused_live disagrees with its plain version, "
+                             f"pred {pred}: {err} / {id_err} / {swap_err} "
+                             f"> {tol}")
+    qv, qb, _, _, _, _, dbm, tomb = args
+    base_n = kw["base_n"]
+    if bool(mk.tombstone_bits_plain(tomb, gi[real]).any()):
+        raise AssertionError(f"fused_live returned a dead id, pred {pred}")
+    delta = (gi >= base_n)
+    rows = (gi.long() - base_n).clamp(min=0)
+    passes = mk._predicate_mask_block(dbm, qb, pred).gather(
+        1, rows.clamp(max=dbm.shape[0] - 1))
+    if not bool(passes[delta].all()):
+        raise AssertionError(f"fused_live returned a delta row that fails "
+                             f"the predicate, pred {pred}")
+    kept = torch.sort(gi.masked_fill(~real, -1), dim=1).values
+    if bool(((kept[:, 1:] == kept[:, :-1]) & (kept[:, 1:] >= 0)).any()):
+        raise AssertionError(f"fused_live returned an id twice, pred {pred}")
+    return err
+
+
+def check_live_path_kernels(live, batches: dict) -> dict:
+    """The live path's kernels on its own inputs against their plain
+    versions: `fused_live` on each exact batch's (256 queries, 1,016
+    base candidates a query, the delta mirror, the pruner's rows),
+    the k > MAX_K top-k on the first 64-query chunk of each base
+    overfetch (k = 1,016 over the 1M base rows). Returns max abs
+    errors."""
+    dd = live.device
+    d = dd.vectors.shape[1]
+    errs = {"fused_live": 0.0, "masked_topk_large": 0.0}
+    for pred, batch in batches.items():
+        args, kw, kb = live_kernel_inputs(live, batch)
+        qv, dvec = args[0], args[4]
+        vn = max(float(dd.norms.max()), float((dvec ** 2).sum(1).max())) ** 0.5
+        qn = float(qv.norm(dim=1).max())
+        tol = 2 * d * 2.0 ** -24 * (vn * vn + 2 * qn * vn)
+        gd, gi = mk.fused_live_accum(*args, **kw, pred=pred, k=batch.k)
+        pd, pi = mk.fused_live_plain(*args, **kw, pred=pred, k=batch.k)
+        errs["fused_live"] = max(errs["fused_live"], hold_fused_to_plain(
+            pred, args, kw, gd, gi, pd, pi, tol))
+        emit("live.kernels.fused_live.random", pred=PRED_NAMES[pred],
+             q=batch.q, kb=kb, delta_rows=int(dvec.shape[0]),
+             scanned=int(dvec.shape[0] if kw["sel"] is None
+                         else kw["sel"].shape[0]),
+             max_abs_err=errs["fused_live"], tol=tol,
+             ids_differing=int(((gi != pi) & (gi >= 0)).sum()))
+        base = (qv[:DEFAULT_QCHUNK], args[1][:DEFAULT_QCHUNK], dd.vectors,
+                dd.norms, dd.bitmaps)
+        gd, gi = mk.masked_topk_large(*base, pred=pred, k=kb)
+        pd, pi = mk.masked_topk_plain(*base, pred=pred, k=kb)
+        errs["masked_topk_large"] = max(
+            errs["masked_topk_large"],
+            hold_to_plain("masked_topk_large", pred, base, gd, gi, pd, pi,
+                          tol))
+    return errs
+
+
+def live_rows(live):
+    """Host (vectors, bitmaps, norms, tombstones) of the live handle's rows
+    in id order: the base, then the delta."""
+    dvec, dbm, dn = live._delta.host_view(live._delta.rows)
+    return (np.concatenate([live.ds.vectors, dvec]),
+            np.concatenate([live.ds.bitmaps, dbm]),
+            np.concatenate([live.ds.norms_sq, dn]), live._tomb.copy())
+
+
+def check_live_result(rows, batch, res, what: str) -> None:
+    """As `check_result`, over the live rows: ids in range and live,
+    finite distances that agree with float64, each row passing the
+    predicate."""
+    vec, bm, _, tomb = rows
+    ids, dist = res.ids, res.distances
+    if ids.shape != (batch.q, batch.k) or dist.shape != ids.shape:
+        raise AssertionError(f"{what}: shapes {ids.shape} / {dist.shape}")
+    if ids.min() < -1 or ids.max() >= vec.shape[0]:
+        raise AssertionError(f"{what}: ids outside [-1, {vec.shape[0]})")
+    ok = ids >= 0
+    safe = np.maximum(ids, 0)
+    if tomb[safe][ok].any():
+        raise AssertionError(f"{what}: a deleted row came back")
+    if not np.isfinite(dist[ok]).all() or not np.isnan(dist[~ok]).all():
+        raise AssertionError(f"{what}: distances not finite at real ids")
+    exact = ((vec[safe].astype(np.float64)
+              - batch.vectors[:, None, :].astype(np.float64)) ** 2).sum(-1)
+    scale = ((np.linalg.norm(vec[safe], axis=-1)
+              + np.linalg.norm(batch.vectors, axis=-1)[:, None]) ** 2)
+    if (np.abs(exact - dist)[ok] > (4 * vec.shape[1] * 2.0 ** -24
+                                    * scale)[ok]).any():
+        raise AssertionError(f"{what}: distances disagree with float64")
+    passes = eval_predicate_np(bm[safe], batch.bitmaps[:, None, :],
+                               batch.pred)
+    if not passes[ok].all():
+        raise AssertionError(f"{what}: a returned row fails the predicate")
+
+
+def hold_live_against_ground_truth(rows, batch, ids, n_gt: int) -> int:
+    """The first `n_gt` queries' live ids against a host exact answer over
+    the live rows (fp32 scores, then float64 distances where the ids
+    differ, as `hold_against_ground_truth`). Returns the count of queries
+    whose ids are identical."""
+    vec, bm, norms, tomb = rows
+    same = 0
+    for qi in range(n_gt):
+        q = batch.vectors[qi]
+        ok = eval_predicate_np(bm, batch.bitmaps[qi][None],
+                               batch.pred) & ~tomb
+        d = np.where(ok, norms - 2.0 * (vec @ q), np.inf)
+        take = min(batch.k, int(ok.sum()))
+        want = np.full(batch.k, -1, np.int64)
+        if take:
+            part = np.argpartition(d, take - 1)[:take]
+            want[:take] = part[np.argsort(d[part], kind="stable")]
+        a = ids[qi]
+        if np.array_equal(a, want):
+            same += 1
+            continue
+        if not np.array_equal(a >= 0, want >= 0):
+            raise AssertionError(f"live query {qi}: fill differs from the "
+                                 f"host answer")
+        qd = q.astype(np.float64)
+
+        def dists(x):
+            return np.sort(((vec[x[x >= 0]].astype(np.float64) - qd) ** 2
+                            ).sum(1))
+
+        da, db = dists(a), dists(want)
+        tol = 4 * vec.shape[1] * 2.0 ** -24 * (np.sqrt(db.max())
+                                               + 2 * np.linalg.norm(qd)) ** 2
+        if np.abs(da - db).max() > tol:
+            raise AssertionError(f"live query {qi}: ids are not a top-k")
+    return same
+
+
+def live_writes(live, ds, seed: int = 23) -> dict:
+    """The live path's writes: LIVE_UPSERTS base rows picked by a seeded
+    generator (in row order, as a catalogue re-ingested group by group),
+    + 0.01, with their bitmaps; then LIVE_BASE_DELETES base ids and
+    LIVE_DELTA_DELETES delta ids deleted. Returns what was written."""
+    rng = np.random.default_rng(seed)
+    pick = np.sort(rng.choice(ds.n, LIVE_UPSERTS, replace=False))
+    ids = live.upsert(ds.vectors[pick] + np.float32(0.01), ds.bitmaps[pick])
+    dead = np.concatenate([rng.choice(ds.n, LIVE_BASE_DELETES,
+                                      replace=False),
+                           ids[rng.choice(LIVE_UPSERTS, LIVE_DELTA_DELETES,
+                                          replace=False)]])
+    if live.delete(dead) != dead.size:
+        raise AssertionError("live deletes were not all fresh")
+    return {"pick": pick, "ids": ids, "dead": dead}
+
+
+def same_bits(a, b) -> bool:
+    return (np.array_equal(a.ids, b.ids) and np.array_equal(a.keys, b.keys)
+            and np.array_equal(a.distances.view(np.int32),
+                               b.distances.view(np.int32)))
+
+
+def live_answers(live, live_full, ds, batches: dict, routed: dict,
+                 svc) -> dict:
+    """The live path's writes on `live` (chunk pruner on) and `live_full`
+    (pruner off), then what `run_live_reads` holds the path to, made
+    before its launch counts are set to 0: each exact batch's unpruned
+    fused read on `live_full`, each routed batch's exact answer on `live`
+    (recall@10's truth) and the queue's workload over `svc`, the
+    `RouterService` on `live`."""
+    for h in (live, live_full):
+        live_writes(h, ds)
+    emit("live.writes", upserts=LIVE_UPSERTS, base_deletes=LIVE_BASE_DELETES,
+         delta_deletes=LIVE_DELTA_DELETES, **{
+             k: v for k, v in live.stats().items()
+             if k in ("base_n", "delta_rows", "tombstones", "n_live")})
+    F.dataset_features(ds, fx=live)       # once per handle, cached on it
+    return {"unpruned": {p: live_full.search(b, "prefilter")
+                         for p, b in batches.items()},
+            "truth": {p: live.search(b, "prefilter").ids
+                      for p, b in routed.items()},
+            "queue": queue_workload(live, svc, batches, QUEUE_PER_PRED)}
+
+
+def run_live_reads(live, svc, batches: dict, routed: dict, want: dict,
+                   n_gt: int) -> tuple[dict, dict]:
+    """The live read path on `live` after `live_answers`: each exact batch
+    fused with the chunk pruner, bit-identical to the unpruned read in
+    `want`, the first `n_gt` queries against the host exact answer;
+    routed search through `svc` on the live handle; single queries
+    through `AsyncBatchQueue` over it, answering as the batched calls do.
+    Returns (a summary, the fused answers)."""
+    out = {"recall_at_10": {}}
+    rows = live_rows(live)
+    fused = {}
+    t0 = time.perf_counter()
+    for pred, batch in batches.items():
+        before = live.stats()["delta_prune"]["pruned"]
+        res = fused[pred] = live.search(batch, "prefilter")
+        pruned = live.stats()["delta_prune"]["pruned"] - before
+        full = want["unpruned"][pred]
+        if not same_bits(res, full):
+            raise AssertionError(f"live fused answers with and without the "
+                                 f"chunk pruner differ, {PRED_NAMES[pred]}")
+        check_live_result(rows, batch, res, f"live {PRED_NAMES[pred]}")
+        same = hold_live_against_ground_truth(rows, batch, res.ids, n_gt)
+        emit("live.exact", pred=PRED_NAMES[pred], q=batch.q,
+             fused_s=res.timings["search_s"],
+             fused_base_s=res.timings["base_s"],
+             fused_delta_s=res.timings["delta_s"],
+             unpruned_s=full.timings["search_s"],
+             pruned_clusters=pruned, same_as_unpruned="bit-identical",
+             gt_queries=n_gt, gt_identical=same)
+    out["exact_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for pred, batch in routed.items():
+        res = svc.search(batch)
+        check_live_result(rows, batch, res, f"live routed {PRED_NAMES[pred]}")
+        rec = float(recall_at_k(res.ids, want["truth"][pred]).mean())
+        out["recall_at_10"][PRED_NAMES[pred]] = rec
+        hist = {}
+        for m, ps in res.decisions:
+            hist[f"{m}/{ps}"] = hist.get(f"{m}/{ps}", 0) + 1
+        emit("live.routed", pred=PRED_NAMES[pred], q=batch.q,
+             recall_at_10=rec, decisions=hist, route_s=res.timings["route_s"],
+             search_s=res.timings["search_s"], base_s=res.timings["base_s"],
+             delta_s=res.timings["delta_s"])
+    out["routed_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = run_queue(live, svc, want["queue"], label="live.queue")
+    out["queue_s"] = time.perf_counter() - t0
+    out["queue_batches"] = {k: v["batches"] for k, v in stats.items()}
+    return out, fused
+
+
+def run_live_staged(live, batches: dict, fused: dict) -> float:
+    """The staged live read (`fused=False`: the base overfetch, the delta
+    top-k, `merge_topk`) of each exact batch, bit-identical to the fused
+    answers `fused` of `run_live_reads`. Returns its seconds."""
+    t0 = time.perf_counter()
+    live.fused = False
+    try:
+        for pred, batch in batches.items():
+            staged = live.search(batch, "prefilter")
+            if not same_bits(staged, fused[pred]):
+                raise AssertionError(f"live fused and staged answers "
+                                     f"differ, {PRED_NAMES[pred]}")
+            emit("live.staged", pred=PRED_NAMES[pred], q=batch.q,
+                 staged_s=staged.timings["search_s"],
+                 staged_base_s=staged.timings["base_s"],
+                 staged_delta_s=staged.timings["delta_s"],
+                 staged_merge_s=staged.timings["merge_s"],
+                 same_as_fused="bit-identical")
+    finally:
+        live.fused = True
+    return time.perf_counter() - t0
+
+
+def run_live_compaction(live, ds, batches: dict) -> dict:
+    """A snapshot read across a further write (the queries' own vectors
+    upserted, each query's current top-1 deleted: the pinned epoch
+    answers unchanged, the current one sees the write), then `compact()`:
+    the compacted handle's exact answers bit-identical to a fresh
+    `FilteredIndex` over its dataset, `last_remap` taking the ids of the
+    answers before to those after, with the same keys."""
+    batch = batches[int(Predicate.AND)]
+    with live.snapshot() as snap:
+        before = live.search(batch, "prefilter", snapshot=snap)
+        new = live.upsert(batch.vectors[:64], batch.bitmaps[:64])
+        live.delete(np.unique(before.ids[:64, 0][before.ids[:64, 0] >= 0]))
+        pinned = live.search(batch, "prefilter", snapshot=snap)
+        now = live.search(batch, "prefilter")
+    if not same_bits(pinned, before):
+        raise AssertionError("a snapshot's answer changed under a write")
+    if not np.array_equal(now.ids[:64, 0], new):
+        raise AssertionError("the current epoch does not see the write")
+    emit("live.snapshot", pinned_unchanged=True, write_seen=True,
+         upserted=int(new.size))
+    pre = {p: live.search(b, "prefilter") for p, b in batches.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = live.compact()
+    compact_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    remap = live.last_remap()
+    fresh = FilteredIndex(live.ds, device=live.torch_device)
+    t0 = time.perf_counter()
+    for pred, b in batches.items():
+        got = live.search(b, "prefilter")
+        want = fresh.search(b, "prefilter")
+        if not (np.array_equal(got.ids, want.ids) and np.array_equal(
+                got.distances.view(np.int32), want.distances.view(np.int32))):
+            raise AssertionError(f"the compacted index differs from a fresh "
+                                 f"FilteredIndex, {PRED_NAMES[pred]}")
+        ok = pre[pred].ids >= 0
+        moved = np.where(ok, remap[np.maximum(pre[pred].ids, 0)], -1)
+        if not (np.array_equal(moved, got.ids)
+                and np.array_equal(pre[pred].keys, got.keys)):
+            raise AssertionError(f"last_remap does not translate the ids, "
+                                 f"{PRED_NAMES[pred]}")
+    st = live.stats()
+    emit("live.compact", compact_s=compact_s, generation=gen,
+         base_n=st["base_n"], delta_rows=st["delta_rows"],
+         tombstones=st["tombstones"], built=[list(k) for k in
+                                             live.built_keys()],
+         peak_device_mb_during_compact=peak,
+         same_as_fresh="bit-identical", remap_translates_ids=True,
+         check_s=time.perf_counter() - t0)
+    fresh.close()
+    return {"compact_s": compact_s, "peak_device_mb_compact": peak}
+
+
+def time_live_kernels(live, batches: dict, dev) -> dict:
+    """Kernel and plain-version times on the live path's inputs:
+    `fused_live` on each exact batch's (as `_run_fused` makes them), the
+    k > MAX_K top-k on the first 64-query chunk of each base overfetch
+    (k = 1,016 over the 1M base rows, as exact search cuts it). Returns
+    per-kernel sums over the three predicates."""
+    dd = live.device
+    n, w = dd.bitmaps.shape
+    d = dd.vectors.shape[1]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+    out = {name: dict(ms=0.0, plain_ms=0.0, bound_s=0.0, ops_s=0.0,
+                      bytes_s=0.0) for name in ("fused_live",
+                                                "masked_topk_large")}
+
+    def add(name, ms, plain_ms, bound):
+        o = out[name]
+        o["ms"] += ms
+        o["plain_ms"] += plain_ms
+        o["bound_s"] += max(bound)
+        o["ops_s"] += bound[0]
+        o["bytes_s"] += bound[1]
+    for pred, batch in batches.items():
+        args, kw, kb = live_kernel_inputs(live, batch)
+        qv, qb, _, _, dvec, dnorm, dbm, tomb = args
+        ms = time_ms(lambda: mk.fused_live_accum(*args, **kw, pred=pred,
+                                                 k=batch.k), 10, flush)
+        pms = time_ms(lambda: mk.fused_live_plain(*args, **kw, pred=pred,
+                                                  k=batch.k), 5, flush)
+        sel = kw["sel"]
+        rows = (torch.arange(dvec.shape[0], device=dev) if sel is None
+                else sel.long())
+        safe = rows.clamp(min=0)
+        live_row = ((rows >= 0) & (rows < live._delta.rows)
+                    & ~mk.tombstone_bits_plain(tomb, safe + kw["base_n"]))
+        mask = (mk._predicate_mask_block(dbm[safe], qb, pred)
+                & live_row[None, :])
+        bound = fused_live_bound(mask, d, w, kb, batch.k, tomb.shape[0],
+                                 sel is not None)
+        add("fused_live", ms, pms, bound)
+
+        base = (qv[:DEFAULT_QCHUNK], qb[:DEFAULT_QCHUNK], dd.vectors,
+                dd.norms, dd.bitmaps)
+        lms = time_ms(lambda: mk.masked_topk_large(*base, pred=pred, k=kb),
+                      10, flush)
+        lpms = time_ms(lambda: mk.masked_topk_plain(*base, pred=pred, k=kb),
+                       5, flush)
+        lbound = masked_topk_bound(
+            mk._predicate_mask_block(dd.bitmaps, base[1], pred), d, w, kb)
+        add("masked_topk_large", lms, lpms, lbound)
+        emit("live.kernels.time", pred=PRED_NAMES[pred], fused_live_q=batch.q,
+             fused_live_kb=kb, fused_live_scanned=int(rows.shape[0]),
+             fused_live_pairs=int(mask.sum()), fused_live_ms=ms,
+             fused_live_plain_ms=pms, fused_live_bound_ms=max(bound) * 1e3,
+             fused_live_bound_ops_ms=bound[0] * 1e3,
+             fused_live_bound_bytes_ms=bound[1] * 1e3,
+             masked_topk_large_q=base[0].shape[0], masked_topk_large_k=kb,
+             masked_topk_large_ms=lms, masked_topk_large_plain_ms=lpms,
+             masked_topk_large_bound_ms=max(lbound) * 1e3,
+             masked_topk_large_bound_ops_ms=lbound[0] * 1e3,
+             masked_topk_large_bound_bytes_ms=lbound[1] * 1e3)
+    del flush
+    return out
 
 
 def profile_phase(name: str, fn) -> None:
@@ -1059,6 +1620,76 @@ def main() -> int:
     t0 = time.perf_counter()
     times.update(time_slice2_kernels(fx, sfx, exact_batches, dev))
     emit("kernels.timing2", seconds=time.perf_counter() - t0)
+    sfx.close()
+
+    # slice 3, the live index: the kernels against their plain versions on
+    # grids, then (a) the live read path with the launch counts set to 0
+    # just before and read just after, (b) the kernels on its inputs,
+    # profiles and times, (c) snapshot and compaction, counted on their own
+    t0 = time.perf_counter()
+    live_cases = check_live_grids(dev)
+    emit("live.kernels.check", grid_cases=live_cases,
+         fused_live_and_masked_topk_large="bit-identical",
+         seconds=time.perf_counter() - t0)
+    live = LiveFilteredIndex(ds, delta_chunk=LIVE_CHUNK)
+    live_full = LiveFilteredIndex(ds, delta_chunk=LIVE_CHUNK,
+                                  delta_prune_min_rows=LIVE_UPSERTS + 1)
+    for h in (live, live_full):
+        h.device                              # upload the bases
+    live_svc = RouterService(live, svc.router, t=0.9)
+    want_live = live_answers(live, live_full, ds, exact_batches, routed,
+                             live_svc)
+    live_full.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    live_summary, live_fused = run_live_reads(
+        live, live_svc, exact_batches, routed, want_live, GT_QUERIES)
+    launches_live = read_launches()
+    emit("live", seconds=time.perf_counter() - t0, launches=launches_live,
+         peak_device_mb=torch.cuda.max_memory_allocated() / 1e6,
+         prune=live.stats()["delta_prune"], **live_summary)
+    for name in ("fused_live", "masked_topk_large", "selectivity"):
+        if launches_live[name] == 0:
+            raise AssertionError(f"the live path never launched {name}")
+    reset_launches()
+    staged_s = run_live_staged(live, exact_batches, live_fused)
+    launches_staged = read_launches()
+    emit("live.staged_path", seconds=staged_s, launches=launches_staged)
+    for name in ("masked_topk_large", "merge_topk"):
+        if launches_staged[name] == 0:
+            raise AssertionError(f"the staged live read never launched "
+                                 f"{name}")
+
+    t0 = time.perf_counter()
+    errs.update(check_live_path_kernels(live, exact_batches))
+    emit("live.kernels.path_check", seconds=time.perf_counter() - t0,
+         fused_live=errs["fused_live"],
+         masked_topk_large=errs["masked_topk_large"])
+    profile_phase("live_exact", lambda: [live.search(b, "prefilter")
+                                         for b in exact_batches.values()])
+
+    def staged_pass():
+        live.fused = False
+        try:
+            for b in exact_batches.values():
+                live.search(b, "prefilter")
+        finally:
+            live.fused = True
+    profile_phase("live_staged", staged_pass)
+    profile_phase("live_routed", lambda: [live_svc.search(b)
+                                          for b in routed.values()])
+    t0 = time.perf_counter()
+    times.update(time_live_kernels(live, exact_batches, dev))
+    emit("live.kernels.timing", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    reset_launches()
+    live_summary.update(run_live_compaction(live, ds, exact_batches))
+    emit("live.compaction_path", seconds=time.perf_counter() - t0,
+         launches=read_launches())
+    live.close()
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []
@@ -1082,7 +1713,23 @@ def main() -> int:
              "src/repro/kernels/masked_topk.py:367", launches_mb,
              "one launch per predicate on the whole 256-query exact batch "
              "over the 1M rows, summed; launches from "
-             "ops.masked_topk_multiblock on the three exact batches")):
+             "ops.masked_topk_multiblock on the three exact batches"),
+            ("fused_live", src + "fused_live.cu",
+             "src/repro/kernels/masked_topk.py:294", launches_live,
+             "one launch per predicate on the live read's inputs for the "
+             "256-query exact batch (1,016 base candidates a query, the "
+             "chunk pruner's delta rows of 65,536, packed tombstones), "
+             "summed; launches from the live read path (fused exact, "
+             "routed and queued reads; its reference answers are made "
+             "before the counts are set to 0)"),
+            ("masked_topk_large", src + "masked_topk.cu",
+             "src/repro/kernels/masked_topk.py:124", launches_live,
+             "masked_topk for k > 128 (the key and select kernels): one "
+             "launch per predicate on the first 64-query chunk of the live "
+             "base overfetch, k = 1,016 over the 1M base rows, summed; "
+             "launches from the live read path (fused exact, routed and "
+             "queued reads; its reference answers are made before the "
+             "counts are set to 0)")):
         t = times[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
@@ -1095,7 +1742,6 @@ def main() -> int:
                            else None),
             "work": work})
     emit("done", seconds=time.perf_counter() - t_all)
-    sfx.close()
     fx.close()
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -54,10 +54,15 @@ class ANNDataset:
 
     @staticmethod
     def from_packed(name: str, vectors: np.ndarray, bitmaps: np.ndarray,
-                    universe: int) -> "ANNDataset":
+                    universe: int, *, return_order: bool = False):
         """Group-sorted construction from already-packed bitmaps: group
         ids by first appearance of a bitmap, rows stably sorted by
-        group."""
+        group. Rows that are already group-sorted keep their order, which
+        `LiveFilteredIndex.compact` relies on.
+
+        With `return_order=True` also returns the [N] permutation where
+        `order[i]` is the input row of output row `i` (the id remap a
+        live compaction translates tombstones through)."""
         vectors = np.asarray(vectors, dtype=np.float32)
         bitmaps = np.asarray(bitmaps, dtype=np.uint32)
         n = vectors.shape[0]
@@ -80,13 +85,14 @@ class ANNDataset:
         ends = np.searchsorted(gid, np.arange(g), side="right").astype(np.int32)
         for k, j in lookup.items():
             group_bitmaps[j] = np.frombuffer(k, dtype=np.uint32)
-        return ANNDataset(
+        ds = ANNDataset(
             name=name, vectors=vectors, bitmaps=bitmaps, universe=universe,
             group_of=gid, group_bitmaps=group_bitmaps,
             group_start=starts, group_size=(ends - starts).astype(np.int32),
             group_lookup=lookup,
             norms_sq=np.sum(vectors.astype(np.float64) ** 2, axis=1).astype(np.float32),
         )
+        return (ds, order) if return_order else ds
 
     @property
     def n(self) -> int:

@@ -198,3 +198,13 @@ class Method:
         ([Q, k] int32 ids with −1 pad, [Q, k] float32 ranking scores
         ‖v‖² − 2·q·v, +inf where the id is −1), both numpy."""
         raise NotImplementedError
+
+    def graft_index(self, new_ds: ANNDataset, old_index, old_ds: ANNDataset,
+                    old_to_new: np.ndarray, new_rows: np.ndarray,
+                    build_params: dict):
+        """Incremental rebuild for compaction: splice the rows of `new_ds`
+        into `old_index` through the id remap `old_to_new` (old row -> new
+        row, −1 = deleted); `new_rows` are the new ids that were not in
+        `old_ds` (compacted delta rows). Returns the grafted index, or
+        None (the default) for the caller to build from scratch."""
+        return None

@@ -240,6 +240,23 @@ class FilteredIndex:
             self._indexes[key] = method.build(self.ds, dict(build_params))
         return self._indexes[key]
 
+    def adopt_index(self, method, build_params, index) -> None:
+        """Install an already-built index under (method, build-params),
+        keyed as `get_index` keys it (the compaction graft hands its
+        spliced indexes over here)."""
+        self._check_open()
+        method = self._resolve_method(method)
+        if build_params is None:
+            build_params = ()
+        if isinstance(build_params, dict):
+            build_params = tuple(sorted(build_params.items()))
+        self._indexes[(method.name, tuple(build_params))] = index
+
+    def built_keys(self) -> list[tuple]:
+        """Keys of every built index: (method_name, build_params_tuple).
+        `LiveFilteredIndex.compact` replays these against the new base."""
+        return list(self._indexes.keys())
+
     def keys_of(self, ids) -> np.ndarray:
         """Stable external keys for result ids (−1 stays −1): a sealed
         index never remaps rows, so keys are the row ids."""

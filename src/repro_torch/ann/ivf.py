@@ -86,9 +86,33 @@ def build_ivf(vectors: np.ndarray, nlist: int, *, seed: int = 0,
                     lists=lists, list_len=fill)
 
 
+def graft_ivf(old: IVFIndex, new_vectors: np.ndarray, old_to_new: np.ndarray,
+              *, max_list_cap: int | None = None) -> IVFIndex:
+    """Splice a compacted dataset into an existing IVF without re-running
+    k-means: the centroids stay frozen, surviving rows keep their old
+    list through the id remap `old_to_new` (old row -> new row, −1 =
+    deleted), and only rows with no carried assignment (compacted delta
+    rows, rows a capped layout had dropped) are assigned afresh. Equal to
+    re-assigning and re-packing every row of `new_vectors` against the
+    frozen centroids."""
+    nlist = old.centroids.shape[0]
+    assign = np.full(new_vectors.shape[0], -1, dtype=np.int64)
+    rows_c, _ = np.nonzero(old.lists >= 0)
+    mapped = old_to_new[old.lists[old.lists >= 0].astype(np.int64)]
+    keep = mapped >= 0
+    assign[mapped[keep]] = rows_c[keep]
+    un = np.nonzero(assign < 0)[0]
+    if un.size:
+        assign[un] = assign_to_centroids(new_vectors[un], old.centroids)
+    lists, fill = pack_lists(assign, nlist, max_list_cap)
+    return IVFIndex(centroids=old.centroids, centroid_norms=old.centroid_norms,
+                    lists=lists, list_len=fill)
+
+
 class IVFMethod(engine.Method):
-    """Build and persistence shared by the IVF-backed methods (k-means
-    over the dataset with seed 13; the JAX package's array keys)."""
+    """Build, persistence and compaction graft shared by the IVF-backed
+    methods (k-means over the dataset with seed 13; the JAX package's
+    array keys)."""
 
     def build(self, ds, build_params: dict) -> IVFIndex:
         return build_ivf(ds.vectors, int(build_params.get("nlist", 128)),
@@ -105,6 +129,12 @@ class IVFMethod(engine.Method):
                         centroid_norms=arrays["centroid_norms"],
                         lists=arrays["lists"],
                         list_len=arrays["list_len"])
+
+    def graft_index(self, new_ds, old_index: IVFIndex, old_ds, old_to_new,
+                    new_rows, build_params) -> IVFIndex | None:
+        if old_index.centroids.shape[0] == 0 or new_ds.n == 0:
+            return None
+        return graft_ivf(old_index, new_ds.vectors, old_to_new)
 
 
 def probe_candidates(qvecs: torch.Tensor, centroids: torch.Tensor,

@@ -24,6 +24,9 @@ Scaling layers on top of the facade:
   or `max_wait_ms`, whichever trips first) so the device sees batched
   traffic without callers coordinating.
 
+Both serve a `repro_torch.ann.live.LiveFilteredIndex` as they serve a
+sealed handle: a routed batch reads one snapshot of it.
+
 The JAX package's services also take `telemetry=`, `tracer=`, `slo=` and
 `obslog=` hooks, and its queue probes a semantic cache and reports to a
 resource ledger; those serving-ops layers are not ported yet.
@@ -65,8 +68,9 @@ class RouterService:
 
     Args:
         index: the owned serving handle the service executes on — a
-            `FilteredIndex`, or anything exposing its `ds`/`run_method`
-            surface (`ShardedRouterService` passes a sharded handle).
+            `FilteredIndex`, a `LiveFilteredIndex`, or anything exposing
+            their `ds`/`run_method` surface (`ShardedRouterService`
+            passes a sharded handle).
         router: a `repro_torch.core.router.MLRouter`.
         t: default recall threshold T for Algorithm 2 (per-call
             overridable via the `t=` kwarg on search/route/explain).
@@ -115,28 +119,41 @@ class RouterService:
 
         An index that reports per-call stage timings through
         `pop_stage_timings()` (the sharded handle: `shard{j}_s`,
-        `shard_max_s`, `merge_s`) has them folded into the result's
-        timings."""
+        `shard_max_s`, `merge_s`; the live handle: `base_s`, `delta_s`,
+        `merge_s`) has them folded into the result's timings. An index
+        that exposes `snapshot()` (the live handle) is read under one
+        batch-wide snapshot: every group and the key lookup see the same
+        epoch, whatever writes or compactions run meanwhile."""
         t1 = time.perf_counter()
         ids = np.full((batch.q, batch.k), -1, dtype=np.int32)
         raw = np.full((batch.q, batch.k), np.inf, dtype=np.float32)
         pop = getattr(self.index, "pop_stage_timings", None)
         if callable(pop):
             pop()                        # clear this thread's stale slate
+        snap_fn = getattr(self.index, "snapshot", None)
+        snap = snap_fn() if callable(snap_fn) else None
+        pin = {} if snap is None else {"snapshot": snap}
         groups: dict = {}
         for qi, d in enumerate(decisions):
             groups.setdefault(d, []).append(qi)
-        for (m_name, ps_id), idxs in groups.items():
-            method = self.methods[m_name]
-            # B may not cover a brand-new deployment dataset yet: fall
-            # back to the method's max-budget setting until benchmarked.
-            setting = engine.resolve_setting(method, ps_id)
-            idxs = np.asarray(idxs)
-            g_ids, g_raw = self.index.run_method(method, setting,
-                                                 batch.take(idxs))
-            ids[idxs] = g_ids
-            raw[idxs] = g_raw
-        keys = self.index.keys_of(ids)
+        try:
+            for (m_name, ps_id), idxs in groups.items():
+                method = self.methods[m_name]
+                # B may not cover a brand-new deployment dataset yet: fall
+                # back to the method's max-budget setting until
+                # benchmarked.
+                setting = engine.resolve_setting(method, ps_id)
+                idxs = np.asarray(idxs)
+                g_ids, g_raw = self.index.run_method(
+                    method, setting, batch.take(idxs), **pin)
+                ids[idxs] = g_ids
+                raw[idxs] = g_raw
+            # stable keys resolve inside the batch snapshot, so a
+            # compaction can't remap rows between search and key lookup
+            keys = self.index.keys_of(ids, **pin)
+        finally:
+            if snap is not None:
+                snap.release()
         t2 = time.perf_counter()
         timings = {"search_s": t2 - t1, "total_s": t2 - t1}
         if callable(pop):

@@ -19,6 +19,12 @@ come from the `selectivity` kernel over the device-resident bitmaps, on
 a CPU handle (or without one) from the group-table reduction. Both are
 exact integer counts divided by n, so the columns are bit-identical
 across devices.
+
+A live handle (`repro_torch.ann.live.LiveFilteredIndex`, anything with
+`live_stats()`) corrects the columns to its live rows: selectivity
+counts lose the tombstoned base rows' matches and gain the live delta
+rows', over the live row count; the per-label frequencies and the
+`size` feature are the live ones.
 """
 
 from __future__ import annotations
@@ -183,15 +189,77 @@ def dataset_features(ds: ANNDataset, *, sample: int = 256, k: int = 20,
 # per-query features
 # ---------------------------------------------------------------------------
 
+_LIVE_UNKNOWN = object()   # "look it up" sentinel for the live= kwargs
+
+
+def _live_of(fx):
+    """The handle's `LiveStats` when `fx` is a live index (anything with
+    `live_stats()`), else None."""
+    get = getattr(fx, "live_stats", None)
+    return get() if callable(get) else None
+
+
+def _match_counts(qbms: np.ndarray, bitmaps: np.ndarray,
+                  pred: Predicate) -> np.ndarray:
+    """[Q] exact predicate match counts of each query against a small row
+    set (word-looped, unweighted): the live corrections."""
+    pred = Predicate(pred)
+    q, w = qbms.shape
+    n = bitmaps.shape[0]
+    if pred == Predicate.EQUALITY:
+        ok = np.ones((q, n), dtype=bool)
+        for i in range(w):
+            ok &= bitmaps[None, :, i] == qbms[:, i, None]
+    elif pred == Predicate.OR:
+        ok = np.zeros((q, n), dtype=bool)
+        for i in range(w):
+            ok |= (bitmaps[None, :, i] & qbms[:, i, None]) != 0
+    else:                                       # AND
+        ok = np.ones((q, n), dtype=bool)
+        for i in range(w):
+            qw = qbms[:, i, None]
+            ok &= (bitmaps[None, :, i] & qw) == qw
+    return ok.sum(1).astype(np.float64)
+
+
 def batch_selectivity(ds: ANNDataset, qbms: np.ndarray,
-                      pred: Predicate, *, fx=None) -> np.ndarray:
+                      pred: Predicate, *, fx=None,
+                      live=_LIVE_UNKNOWN) -> np.ndarray:
     """[Q] predicate selectivity fractions for a whole query batch.
 
-    On a CUDA handle `fx` this is one `selectivity` kernel launch over
-    the handle's device-resident [N, W] bitmaps; otherwise one
-    word-looped group-table reduction (G ≪ N rows, weighted by group
-    size). Both are exact.
+    On a CUDA handle `fx` the base counts are one `selectivity` kernel
+    launch over the handle's device-resident [N, W] bitmaps; otherwise
+    one word-looped group-table reduction (G ≪ N rows, weighted by group
+    size). Both are exact. When `fx` is a live handle the counts are
+    corrected exactly to its live rows (matches on tombstoned base rows
+    subtracted, matches on live delta rows added) and the fraction is
+    taken over the live row count. Callers that already hold a
+    `LiveStats` pass it as `live=` (one snapshot per feature pass);
+    `live=None` forces the sealed path.
     """
+    if live is _LIVE_UNKNOWN:
+        live = _live_of(fx)
+    if live is None:
+        return _base_selectivity(ds, qbms, pred, fx=fx)
+    # count base matches against the snapshot's base (LiveStats.base_ds):
+    # the group-table path stays consistent with the corrections under a
+    # racing compaction; the kernel path reads the handle's current base
+    base_ds = live.base_ds
+    if base_ds is None or base_ds.n == 0:
+        counts = np.zeros(qbms.shape[0], dtype=np.float64)
+    else:
+        counts = _base_selectivity(base_ds, qbms, pred, fx=fx) * base_ds.n
+    if live.base_tomb_bitmaps.shape[0]:
+        counts = counts - _match_counts(qbms, live.base_tomb_bitmaps, pred)
+    if live.delta_bitmaps.shape[0]:
+        counts = counts + _match_counts(qbms, live.delta_bitmaps, pred)
+    return np.maximum(counts, 0.0) / max(live.n_live, 1)
+
+
+def _base_selectivity(ds: ANNDataset, qbms: np.ndarray,
+                      pred: Predicate, *, fx=None) -> np.ndarray:
+    """Sealed-base selectivity fractions (over `ds.n`); see
+    `batch_selectivity`."""
     pred = Predicate(pred)
     if fx is not None and fx.torch_device.type == "cuda":
         counts = ops.selectivity(to_device(qbms, fx.torch_device),
@@ -248,18 +316,22 @@ def _group_table_selectivity(ds: ANNDataset, qbms: np.ndarray,
 
 def query_feature_arrays(ds: ANNDataset, dsf: DatasetFeatures,
                          qbms: np.ndarray, pred: Predicate, *,
-                         fx=None) -> dict:
-    """All 6 query-aware features for a whole batch: name -> [Q] float64."""
+                         fx=None, live=_LIVE_UNKNOWN) -> dict:
+    """All 6 query-aware features for a whole batch: name -> [Q] float64.
+    For a live handle the per-label frequencies are the live ones
+    (`fx.live_stats()`, or the `LiveStats` passed as `live=`)."""
     bits = _unpack_bits(qbms, ds.universe)                 # [Q, U] bool
     nl = bits.sum(1)
-    lf = dsf.label_freq[None, :]
+    if live is _LIVE_UNKNOWN:
+        live = _live_of(fx)
+    lf = (dsf.label_freq if live is None else live.label_freq)[None, :]
     has = nl > 0
     minf = np.where(has, np.min(np.where(bits, lf, np.inf), axis=1), 0.0)
     maxf = np.where(has, np.max(np.where(bits, lf, -np.inf), axis=1), 0.0)
     meanf = np.where(has, (bits * lf).sum(1) / np.maximum(nl, 1), 0.0)
-    sel = batch_selectivity(ds, qbms, pred, fx=fx)
+    sel = batch_selectivity(ds, qbms, pred, fx=fx, live=live)
     cooc = sel if Predicate(pred) == Predicate.AND \
-        else batch_selectivity(ds, qbms, Predicate.AND, fx=fx)
+        else batch_selectivity(ds, qbms, Predicate.AND, fx=fx, live=live)
     return {
         "n_labels": nl.astype(np.float64),
         "selectivity": sel,
@@ -275,10 +347,12 @@ def feature_matrix(ds: ANNDataset, qbms: np.ndarray, pred: Predicate,
     """[Q, F(+2 for one-hot pred)] raw feature matrix in `feature_names`
     order; 'pred' expands to a 3-way one-hot. `fx`: the caller's
     `FilteredIndex` (device for the selectivity counts, and the
-    dataset-feature cache)."""
+    dataset-feature cache); a live handle also corrects the
+    selectivity, label-frequency and `size` columns to its live rows."""
     dsf = dataset_features(ds, fx=fx)
     nq = qbms.shape[0]
-    qf = query_feature_arrays(ds, dsf, qbms, pred, fx=fx) \
+    live = _live_of(fx)        # one consistent snapshot per feature pass
+    qf = query_feature_arrays(ds, dsf, qbms, pred, fx=fx, live=live) \
         if any(n in QUERY_FEATURES for n in feature_names) else {}
     cols = []
     for name in feature_names:
@@ -289,5 +363,8 @@ def feature_matrix(ds: ANNDataset, qbms: np.ndarray, pred: Predicate,
         elif name in QUERY_FEATURES:
             cols.append(np.asarray(qf[name], dtype=np.float64)[:, None])
         else:
-            cols.append(np.full((nq, 1), dsf.values[name]))
+            val = dsf.values[name]
+            if live is not None and name == "size":
+                val = float(live.n_live)
+            cols.append(np.full((nq, 1), val))
     return np.concatenate(cols, axis=1).astype(np.float32)

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.ann.index import resolve_device
+
 
 @dataclasses.dataclass
 class Scaler:
@@ -39,9 +41,11 @@ class StackedMLP(nn.Module):
     [M, Q, n_out], ReLU between layers, `h @ w + b` per layer as in the
     JAX package's `forward`."""
 
-    def __init__(self, models: list, device="cpu"):
-        """`models`: M lists of numpy layer dicts (one list per model)."""
+    def __init__(self, models: list, device="cuda"):
+        """`models`: M lists of numpy layer dicts (one list per model);
+        `device` "cuda" (default, raises without a card) or "cpu"."""
         super().__init__()
+        device = resolve_device(device)
         per_model = [params_from_numpy(m, device) for m in models]
         n_layers = len(per_model[0])
         self.weights = nn.ParameterList(

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.ann.dataset import ANNDataset, sha1_file
+from repro_torch.ann.index import resolve_device
 from repro_torch.ann.predicates import Predicate
 from repro_torch.core import features as F
 from repro_torch.core import mlp
@@ -81,12 +82,14 @@ class MLRouter:
 
     # ---- prediction -----------------------------------------------------
     def predict_recalls(self, ds: ANNDataset, qbms: np.ndarray,
-                        pred: Predicate, *, fx=None) -> np.ndarray:
+                        pred: Predicate, *, fx=None,
+                        device="cuda") -> np.ndarray:
         """[Q, M] predicted recall@10 per candidate method (one vectorised
         feature pass + one stacked-MLP forward, on `fx`'s device when a
-        handle is given, else on the CPU)."""
+        handle is given, else on `device`: "cuda" by default, which
+        raises without a card; pass "cpu" to run on the CPU)."""
+        device = fx.torch_device if fx is not None else resolve_device(device)
         x = F.feature_matrix(ds, qbms, pred, self.feature_names, fx=fx)
-        device = fx.torch_device if fx is not None else torch.device("cpu")
         return self.predict_recalls_from_features(x, device=device)
 
     def stacked_model(self, device) -> mlp.StackedMLP:
@@ -101,7 +104,10 @@ class MLRouter:
         return net
 
     def predict_recalls_from_features(self, x_raw: np.ndarray, *,
-                                      device="cpu") -> np.ndarray:
+                                      device="cuda") -> np.ndarray:
+        """[Q, M] predicted recalls from a raw feature matrix, the MLPs on
+        `device` ("cuda" by default, which raises without a card)."""
+        device = resolve_device(device)
         xs = torch.from_numpy(self.scaler.transform(x_raw)).to(device)
         with torch.no_grad():
             out = self.stacked_model(device)(xs)               # [M, Q, 1]
@@ -127,8 +133,8 @@ class MLRouter:
         return list(zip(names.tolist(), ps_sel.tolist()))
 
     def route(self, ds: ANNDataset, qbms: np.ndarray, pred: Predicate,
-              t: float, *, fx=None):
-        r_hat = self.predict_recalls(ds, qbms, pred, fx=fx)
+              t: float, *, fx=None, device="cuda"):
+        r_hat = self.predict_recalls(ds, qbms, pred, fx=fx, device=device)
         return self.route_from_predictions(r_hat, ds.name, pred, t)
 
     # ---- persistence ----

@@ -13,6 +13,17 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kEmptyId = 0x7fffffff;   // id of an empty top-k slot
 constexpr float kPadScore = 3.0e38f;   // masked_topk's sentinel score
 
+// Integer key whose order is the IEEE total order of the float (-0.0
+// before +0.0), the order jax.lax.top_k ranks by, and its inverse.
+__device__ __forceinline__ int order_key(float x) {
+  const int b = __float_as_int(x);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float key_float(int key) {
+  return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
+}
+
 // (score, id) lexicographic order: ties go to the lower row id, the
 // order `_fold_topk` of the TPU kernel produces. Also used on (key,
 // position) pairs with integer keys.

@@ -63,16 +63,6 @@ constexpr int kWarpThreads = 256;       // warp mode: 8 queries a block
 constexpr int kMaxThreads = 1024;       // block mode: one query a block
 constexpr int kEmptyKey = 0x7fffffff;   // after every float's key
 
-// Integer key whose order is the IEEE total order of the float.
-__device__ __forceinline__ int order_key(float x) {
-  const int b = __float_as_int(x);
-  return b >= 0 ? b : b ^ 0x7fffffff;
-}
-
-__device__ __forceinline__ float key_float(int key) {
-  return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
-}
-
 // One query's candidates: list l, slot j of [s, nq, kk].
 struct Lists {
   const float* __restrict__ dists;

@@ -16,6 +16,13 @@ in the slots past the valid candidates; `ops` turns those into −1 /
 * `merge_topk_accum`: [S, Q, K] candidates -> [Q, k], in the IEEE total
   order of the distances (−0.0 before +0.0, as `jax.lax.top_k` ranks)
   with ties to the earlier shard, then the earlier slot.
+* `fused_live_accum`: the live read (`csrc/fused_live.cu`): tombstone-
+  masked base candidates, then the delta rows' masked scores, in one
+  [Q, k] top-k in that fold order.
+
+`masked_topk_accum` takes any k: up to `MAX_K` through the split
+kernel's per-thread lists, above it through the key/radix-select kernels
+of `csrc/masked_topk.cu`. The other wrappers take k up to `MAX_K`.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from repro_torch.ann.topk import order_key
 from repro_torch.kernels import _build
 
 PAD_SCORE = 3.0e38      # sentinel of masked-out candidates (finite, as on TPU)
-MAX_K = 128             # largest k the CUDA kernel keeps per thread
+MAX_K = 128             # largest k the split kernel keeps per thread
+LARGE_KEYS = 1 << 26    # (query, row) keys a k > MAX_K launch holds (256 MB)
+LARGE_SORT_SMEM = 16384  # survivors the k > MAX_K sort keeps in shared memory
 MAX_SPLITS = 1024       # row splits (the kernel's grid.y)
 SPLIT_ROWS = 1024       # rows a split is given, up to MAX_SPLITS splits
 SMEM_LIMIT = 232448     # shared memory a block can use on Hopper (227 KB)
@@ -100,7 +109,7 @@ def masked_topk_blocks_plain(qvecs, qbms, base, norms, bitmaps, *,
             ids.transpose(0, 1).contiguous())
 
 
-def _check(qvecs, qbms, base, norms, bitmaps, pred, k):
+def _check(qvecs, qbms, base, norms, bitmaps, pred, k, max_k=MAX_K):
     for name, t in (("qvecs", qvecs), ("base", base)):
         if t.dtype not in _DTYPES:
             raise TypeError(f"masked_topk takes float32 or bfloat16 {name}; "
@@ -114,8 +123,9 @@ def _check(qvecs, qbms, base, norms, bitmaps, pred, k):
         if t.dtype != torch.int32:
             raise TypeError(f"masked_topk takes int32 views of the uint32 "
                             f"{name}; got {t.dtype}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"masked_topk supports 1 <= k <= {MAX_K}; got {k}")
+    if k < 1 or (max_k is not None and k > max_k):
+        bound = "" if max_k is None else f" <= {max_k}"
+        raise ValueError(f"masked_topk supports 1 <= k{bound}; got {k}")
     if pred not in (0, 1, 2):
         raise ValueError(f"pred must be 0, 1 or 2; got {pred}")
     q, d = qvecs.shape
@@ -150,7 +160,7 @@ def _scan_device(name, qvecs, qbms, base, norms, bitmaps):
     d = qvecs.shape[1]
     n, w = bitmaps.shape
     lib = _build.library()
-    smem = lib.masked_topk_smem_bytes(d, w)
+    smem = lib.tile_scan_smem_bytes(d, w)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name} keeps 48 rows of D + W words in shared "
                          f"memory: D = {d}, W = {w} needs {smem} bytes, more "
@@ -186,14 +196,18 @@ def masked_topk_accum(qvecs, qbms, base, norms, bitmaps, *, pred: int,
 
     qvecs [Q, D] and base [N, D] both float32 or both bfloat16 (the dot
     accumulates in fp32), qbms [Q, W] int32, norms [N] f32, bitmaps
-    [N, W] int32, all on one device. CUDA tensors launch the split kernel
-    over `splits_for(N)` row splits and fold its per-split lists with the
-    merge kernel (the pair counted once in `masked_topk_accum.launches`);
-    CPU tensors run `masked_topk_plain`. Raises TypeError/ValueError on
-    inputs the kernel does not take, RuntimeError if a launch fails.
+    [N, W] int32, all on one device; any k >= 1. CUDA tensors with
+    k <= MAX_K launch the split kernel over `splits_for(N)` row splits
+    and fold its per-split lists with the merge kernel, the pair
+    (counted once in `masked_topk_accum.launches`); with k > MAX_K they
+    go to `masked_topk_large`. CPU tensors run `masked_topk_plain`.
+    Raises TypeError/ValueError on inputs the kernel does not take,
+    RuntimeError if a launch fails.
     """
     pred, k = int(pred), int(k)
     args = (qvecs, qbms, base, norms, bitmaps)
+    if k > MAX_K:
+        return masked_topk_large(*args, pred=pred, k=k)
     _check(*args, pred, k)
     dev, lib = _scan_device("masked_topk", *args)
     if dev is None:
@@ -219,6 +233,52 @@ def masked_topk_accum(qvecs, qbms, base, norms, bitmaps, *, pred: int,
 
 
 masked_topk_accum.launches = 0
+
+
+def masked_topk_large(qvecs, qbms, base, norms, bitmaps, *, pred: int,
+                      k: int):
+    """Masked exact top-k for any k, through the kernels that keep no
+    per-thread lists (`masked_topk_accum` sends k > MAX_K here): per
+    query chunk (at most LARGE_KEYS keys at once) the key kernel writes
+    [Qc, N] sortable score keys and the select kernel reduces each
+    query's to its top-k, sorting in shared memory up to LARGE_SORT_SMEM
+    survivors and in a global scratch above. Counted once a call in
+    `masked_topk_large.launches`. Inputs and output as
+    `masked_topk_accum`; CPU tensors run `masked_topk_plain`."""
+    pred, k = int(pred), int(k)
+    args = (qvecs, qbms, base, norms, bitmaps)
+    _check(*args, pred, k, max_k=None)
+    dev, lib = _scan_device("masked_topk", *args)
+    if dev is None:
+        return masked_topk_plain(*args, pred=pred, k=k)
+    q, d = qvecs.shape
+    n, w = bitmaps.shape
+    dists = torch.full((q, k), PAD_SCORE, dtype=torch.float32, device=dev)
+    ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
+    if q == 0 or n == 0:
+        return dists, ids
+    n2 = 1 << (min(k, n) - 1).bit_length()
+    qc = max(1, min(q, LARGE_KEYS // n))
+    keys = torch.empty((qc, n), dtype=torch.int32, device=dev)
+    scratch = (None if n2 <= LARGE_SORT_SMEM else
+               torch.empty((qc, n2), dtype=torch.int64, device=dev))
+    rows = max(1, -(-n // splits_for(n)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s in range(0, q, qc):
+            e = min(q, s + qc)
+            code = lib.masked_topk_large_launch(
+                qvecs[s:e].data_ptr(), qbms[s:e].data_ptr(), base.data_ptr(),
+                norms.data_ptr(), bitmaps.data_ptr(), keys.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                dists[s:e].data_ptr(), ids[s:e].data_ptr(), e - s, n, d, w,
+                pred, k, n2, rows, _DTYPES[qvecs.dtype], stream)
+            _build.check(code, "masked_topk")
+    _build.count_launch(masked_topk_large)
+    return dists, ids
+
+
+masked_topk_large.launches = 0
 
 
 def masked_topk_blocks(qvecs, qbms, base, norms, bitmaps, *, pred: int,
@@ -321,3 +381,170 @@ def merge_topk_accum(dists, ids, *, k: int):
 
 
 merge_topk_accum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused live read: base candidates + delta scan + tombstones
+# ---------------------------------------------------------------------------
+
+def tombstone_bits_plain(tomb_words: torch.Tensor,
+                         ids: torch.Tensor) -> torch.Tensor:
+    """Packed tombstone lookup: bool, True where global row `id` is dead.
+
+    `tomb_words` [TW] int32 views of the uint32 words, bit `r & 31` of
+    word `r >> 5` set for dead row r (numpy `packbits(bitorder="little")`
+    layout). Ids are clipped into range first, as the reference does:
+    out-of-range ids (−1 pads, sentinel rows) read an arbitrary bit,
+    which is harmless because their score is already PAD_SCORE. The
+    words are shifted as int32 (torch's uint32 `>>` does not run on the
+    CPU) and masked after the shift, which gives the same bit."""
+    safe = ids.long().clamp(0, tomb_words.shape[0] * 32 - 1)
+    words = tomb_words[safe >> 5]
+    return ((words >> (safe & 31).to(torch.int32)) & 1) != 0
+
+
+def _fused_live_inputs(dvec, dnorms, dbm, sel, base_n: int):
+    """The delta rows in scan order, with their global ids: all mirror
+    rows (id base_n + r), or the rows `sel` picks (a −1 pad gets id −1
+    and a PAD_SCORE norm)."""
+    if sel is None:
+        ids = torch.arange(dvec.shape[0], dtype=torch.int32,
+                           device=dvec.device) + int(base_n)
+        return dvec, dnorms, dbm, ids
+    safe = sel.long().clamp(min=0)
+    pad = sel < 0
+    return (dvec[safe], dnorms[safe].masked_fill(pad, PAD_SCORE), dbm[safe],
+            torch.where(pad, -1, sel + int(base_n)).to(torch.int32))
+
+
+def fused_live_plain(qvecs, qbms, cand_dists, cand_ids, dvec, dnorms, dbm,
+                     tomb_words, *, base_n: int, sel=None, pred: int,
+                     k: int):
+    """Plain PyTorch version of the fused live read, in the kernel's fold
+    order: the base candidates (an id < 0, a non-finite distance, one at
+    or above PAD_SCORE or a tombstoned id becomes PAD_SCORE), then the
+    delta rows' scores ‖v‖² − 2·q·v (PAD_SCORE where the predicate fails
+    or the row is dead), one stable top-k over both by the IEEE total
+    order of the distances (`order_key`), ties to the earlier position.
+    Returns (dists [Q, k], ids [Q, k]), raw: (PAD_SCORE, −1) at invalid
+    outputs."""
+    ci = cand_ids.to(torch.int32)
+    cd = cand_dists.to(torch.float32)
+    bad = ((ci < 0) | ~torch.isfinite(cd) | (cd >= PAD_SCORE)
+           | tombstone_bits_plain(tomb_words, ci))
+    cd = cd.masked_fill(bad, PAD_SCORE)
+    ci = ci.masked_fill(bad, -1)
+    dv, dn, db, di = _fused_live_inputs(dvec, dnorms, dbm, sel, base_n)
+    dead = tombstone_bits_plain(tomb_words, di) | (di < 0)
+    s = _masked_scores(qvecs, qbms, dv, dn, db, pred).masked_fill(
+        dead[None, :], PAD_SCORE)
+    d = torch.cat([cd, s], 1)
+    i = torch.cat([ci, di.expand(s.shape[0], -1)], 1)
+    q, c = d.shape
+    if k > c:
+        d = torch.cat([d, d.new_full((q, k - c), PAD_SCORE)], 1)
+        i = torch.cat([i, i.new_full((q, k - c), -1)], 1)
+    _, order = torch.sort(order_key(d), dim=1, stable=True)
+    out_d = torch.gather(d, 1, order[:, :k])
+    out_i = torch.gather(i, 1, order[:, :k])
+    bad = ~(out_d < PAD_SCORE)
+    return (out_d.masked_fill(bad, PAD_SCORE),
+            torch.where(bad, -1, out_i).to(torch.int32))
+
+
+def fused_live_accum(qvecs, qbms, cand_dists, cand_ids, dvec, dnorms, dbm,
+                     tomb_words, *, base_n: int, sel=None, pred: int,
+                     k: int):
+    """Fused live top-k, raw: (dists [Q, k] f32, ids [Q, k] i32) with
+    (PAD_SCORE, −1) at invalid outputs.
+
+    qvecs [Q, D] f32, qbms [Q, W] int32, cand_dists/cand_ids [Q, KB]
+    f32/int32 routed base candidates (global ids; KB may be 0), the delta
+    mirror dvec [ND, D] f32, dnorms [ND] f32, dbm [ND, W] int32, whose row
+    r has id base_n + r, tomb_words [TW] int32 views of the packed
+    tombstones over base and delta ids (TW >= 1), optional sel [NS] int32
+    mirror rows to scan instead of all of them (−1 pads), 1 <= k <=
+    MAX_K, all on one device. CUDA tensors launch `csrc/fused_live.cu`
+    and fold its lists with the merge kernel (the pair counted once in
+    `fused_live_accum.launches`); CPU tensors run `fused_live_plain`.
+    Raises TypeError/ValueError on inputs the kernel does not take,
+    RuntimeError if a launch fails."""
+    pred, k, base_n = int(pred), int(k), int(base_n)
+    tensors = [qvecs, qbms, cand_dists, cand_ids, dvec, dnorms, dbm,
+               tomb_words] + ([] if sel is None else [sel])
+    types = [torch.float32, torch.int32, torch.float32, torch.int32,
+             torch.float32, torch.float32, torch.int32, torch.int32,
+             torch.int32]
+    for t, want in zip(tensors, types):
+        if t.dtype != want:
+            raise TypeError(f"fused_live takes float32 vectors, norms and "
+                            f"candidate distances and int32 ids, bitmaps, "
+                            f"tombstone words and sel; got {t.dtype} where "
+                            f"{want} is due")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"fused_live supports 1 <= k <= {MAX_K}; got {k}")
+    if pred not in (0, 1, 2):
+        raise ValueError(f"pred must be 0, 1 or 2; got {pred}")
+    q, d = qvecs.shape
+    nd, w = dbm.shape
+    kb = cand_ids.shape[1]
+    if (qbms.shape != (q, w) or cand_dists.shape != (q, kb)
+            or cand_ids.shape[0] != q or dvec.shape != (nd, d)
+            or dnorms.shape != (nd,) or tomb_words.dim() != 1
+            or tomb_words.shape[0] < 1 or (sel is not None and sel.dim() != 1)
+            or base_n < 0):
+        raise ValueError(
+            f"shape mismatch: qvecs {tuple(qvecs.shape)}, qbms "
+            f"{tuple(qbms.shape)}, candidates {tuple(cand_dists.shape)} / "
+            f"{tuple(cand_ids.shape)}, dvec {tuple(dvec.shape)}, dnorms "
+            f"{tuple(dnorms.shape)}, dbm {tuple(dbm.shape)}, tomb_words "
+            f"{tuple(tomb_words.shape)}, base_n {base_n}")
+    dev = qvecs.device
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_live_plain(qvecs, qbms, cand_dists, cand_ids, dvec,
+                                dnorms, dbm, tomb_words, base_n=base_n,
+                                sel=sel, pred=pred, k=k)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"fused_live inputs must share one cuda or cpu "
+                         f"device; got {sorted({str(t.device) for t in tensors})}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused_live inputs must be contiguous")
+    ns = nd if sel is None else sel.shape[0]
+    if (base_n + nd >= 2 ** 31 - 2 ** 16 or kb + ns >= 2 ** 31 - 2 ** 16
+            or tomb_words.shape[0] >= 2 ** 26):
+        raise ValueError(f"fused_live takes fewer than 2^31 ids and "
+                         f"candidates; got base_n {base_n}, ND {nd}, KB {kb}")
+    lib = _build.library()
+    smem = lib.tile_scan_smem_bytes(d, w)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_live keeps 48 rows of D + W words in shared "
+                         f"memory: D = {d}, W = {w} needs {smem} bytes, "
+                         f"more than {SMEM_LIMIT}")
+    dists = torch.empty((q, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return dists, ids
+    splits = 0 if ns == 0 else splits_for(ns)
+    rows = max(1, -(-ns // max(splits, 1)))
+    splits = -(-ns // rows)
+    part_d = torch.empty((1 + splits, q, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((1 + splits, q, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.fused_live_launch(
+            qvecs.data_ptr(), qbms.data_ptr(), cand_dists.data_ptr(),
+            cand_ids.data_ptr(), kb, dvec.data_ptr(), dnorms.data_ptr(),
+            dbm.data_ptr(), None if sel is None else sel.data_ptr(), ns,
+            base_n, tomb_words.data_ptr(), tomb_words.shape[0],
+            part_d.data_ptr(), part_i.data_ptr(), q, d, w, pred, k, rows,
+            stream)
+        _build.check(code, "fused_live")
+        code = lib.merge_topk_launch(
+            part_d.data_ptr(), part_i.data_ptr(), dists.data_ptr(),
+            ids.data_ptr(), 1 + splits, q, k, k, 1, stream)   # lists sorted
+    _build.check(code, "fused_live")
+    _build.count_launch(fused_live_accum)
+    return dists, ids
+
+
+fused_live_accum.launches = 0

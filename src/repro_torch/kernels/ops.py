@@ -5,8 +5,10 @@ themselves, and the merge kernel pads k > K itself), so unlike the TPU
 wrappers nothing is padded to block multiples here and `selectivity`
 needs no padded-row correction. What stays is the reference's output
 rule (`src/repro/kernels/ops.py`): `PAD_SCORE` scores and −1 ids come
-back as id −1 with distance +inf. Each wrapper takes its CUDA kernel for
-CUDA tensors and its plain PyTorch version for CPU tensors.
+back as id −1 with distance +inf, and the fused live read's one dummy
+base slot when there are no base candidates. Each wrapper takes its
+CUDA kernel for CUDA tensors and its plain PyTorch version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -59,6 +61,55 @@ def merge_topk(ids, dists, *, k: int | None = None):
         dists.to(torch.float32).contiguous(),
         ids.to(torch.int32).contiguous(), k=k)
     return _clean(ids, dists)
+
+
+def _fused_live(qvecs, qbms, cand_ids, cand_dists, dvec, dnorms, dbm,
+                base_n, tomb_words, sel, pred, k):
+    """The reference wrapper's rules around `mk.fused_live_accum`: with no
+    base candidates (KB = 0) the kernel gets one dummy slot; outputs map
+    to −1 ids and +inf distances."""
+    q = qvecs.shape[0]
+    if cand_ids.shape[1] == 0:
+        cand_ids = torch.full((q, 1), -1, dtype=torch.int32,
+                              device=qvecs.device)
+        cand_dists = torch.full((q, 1), mk.PAD_SCORE, dtype=torch.float32,
+                                device=qvecs.device)
+    dists, ids = mk.fused_live_accum(
+        qvecs, qbms, cand_dists.to(torch.float32).contiguous(),
+        cand_ids.to(torch.int32).contiguous(), dvec, dnorms, dbm,
+        tomb_words, base_n=int(base_n), sel=sel, pred=pred, k=k)
+    return _clean(ids, dists)
+
+
+def fused_live_topk(qvecs, qbms, cand_ids, cand_dists, dvec, dnorms, dbm,
+                    base_n, tomb_words, *, pred: int, k: int):
+    """Fused live top-k: the routed base candidates folded with a full
+    scan of the delta mirror, tombstones applied to both inside the
+    kernel.
+
+    cand_ids/cand_dists [Q, KB] routed base candidates (global ids, −1 /
+    +inf at invalid slots; KB may be 0); dvec/dnorms/dbm the delta mirror
+    (sentinel rows carry PAD_SCORE norms and never surface); delta row r
+    has global id base_n + r; tomb_words [TW] int32 views of the packed
+    little-endian tombstones over base and delta ids. A candidate with
+    id < 0, a non-finite distance, a distance >= PAD_SCORE or a
+    tombstoned id never surfaces. Returns (ids [Q, k] i32 with −1 pads,
+    dists [Q, k] f32 with +inf pads); equal to the staged base →
+    masked_topk → merge_topk path."""
+    return _fused_live(qvecs, qbms, cand_ids, cand_dists, dvec, dnorms, dbm,
+                       base_n, tomb_words, None, pred, k)
+
+
+def fused_live_topk_select(qvecs, qbms, cand_ids, cand_dists, dvec, dnorms,
+                           dbm, sel, base_n, tomb_words, *, pred: int,
+                           k: int):
+    """`fused_live_topk` over the delta rows `sel` [NS] int32 picks
+    (delta-local rows in scan order, −1 pads: id −1, never surfaces), as
+    the chunk pruner chooses them; the kernel gathers the rows itself.
+    Equal to `fused_live_topk` whenever the pruner's bound holds."""
+    return _fused_live(qvecs, qbms, cand_ids, cand_dists, dvec, dnorms, dbm,
+                       base_n, tomb_words, sel.to(torch.int32).contiguous(),
+                       pred, k)
 
 
 def selectivity(qbms, bitmaps, *, pred: int):

@@ -147,8 +147,14 @@ def test_masked_topk_kernel_counts_launches_and_checks(cuda):
     before = mk.masked_topk_accum.launches
     mk.masked_topk_accum(*args, pred=1, k=5)
     assert mk.masked_topk_accum.launches == before + 1
-    with pytest.raises(ValueError, match="128"):
-        mk.masked_topk_accum(*args, pred=1, k=129)
+    # k past MAX_K is taken (as the reference takes it), by the k > MAX_K
+    # kernels, which count their own launches
+    large = mk.masked_topk_large.launches
+    gd, gi = mk.masked_topk_accum(*args, pred=1, k=129)
+    pd, pi = mk.masked_topk_plain(*args, pred=1, k=129)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, pi) and torch.equal(gd, pd)
+    assert mk.masked_topk_large.launches == large + 1
     with pytest.raises(TypeError):
         mk.masked_topk_accum(args[0].half(), args[1], args[2].half(),
                              *args[3:], pred=1, k=5)
@@ -305,3 +311,120 @@ def test_merge_topk_kernel_signed_zero_order(cuda):
     assert gi.tolist() == [[22, 11, 20, 10, 21, 12]]
     assert torch.signbit(gd[0]).tolist() == [True, True, True, False,
                                              False, False]
+
+
+# ---------------------------------------------------------------------------
+# k past MAX_K, and the fused live read
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pred", [0, 1, 2])
+@pytest.mark.parametrize("q,n,k", [(3, 2000, 129), (5, 70001, 1016),
+                                   (2, 700, 1016), (17, 5000, 200),
+                                   (2, 40000, 20000)])
+def test_masked_topk_large_kernel_bitwise_on_tie_grid(cuda, pred, q, n, k):
+    """The key/select kernels for k > MAX_K against the plain version on
+    the tie grid: ties to the lowest row, fill past the matches (k > N
+    too), the shared-memory sort and (k = 20,000) the global one."""
+    args = _on(cuda, _tie_case(np.random.default_rng(q * 11 + n), q, n))
+    before = mk.masked_topk_large.launches
+    gd, gi = mk.masked_topk_accum(*args, pred=pred, k=k)
+    pd, pi = mk.masked_topk_plain(*args, pred=pred, k=k)
+    torch.cuda.synchronize()
+    assert mk.masked_topk_large.launches == before + 1
+    assert torch.equal(gi, pi)
+    assert torch.equal(gd, pd)
+
+
+def test_masked_topk_large_kernel_scores_equal_split_kernel(cuda):
+    """Random fp32: the k > MAX_K kernels score with the split kernel's
+    FMA chain, so the first 128 of a k = 300 answer are the split
+    kernel's k = 128 answer bit for bit."""
+    rng = np.random.default_rng(3)
+    q, n, d, w = 20, 30011, 192, 7
+    args = (torch.from_numpy(rng.normal(size=(q, d)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 3, (q, w)).astype(np.int32)),
+            torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)),
+            None,
+            torch.from_numpy(rng.integers(0, 8, (n, w)).astype(np.int32)))
+    args = (args[0], args[1], args[2],
+            (args[2].double() ** 2).sum(1).float(), args[4])
+    args = tuple(a.to(cuda) for a in args)
+    for pred in (0, 1, 2):
+        gd, gi = mk.masked_topk_accum(*args, pred=pred, k=300)
+        sd, si = mk.masked_topk_accum(*args, pred=pred, k=mk.MAX_K)
+        torch.cuda.synchronize()
+        assert torch.equal(gi[:, :mk.MAX_K], si)
+        assert torch.equal(gd[:, :mk.MAX_K], sd)
+
+
+def _live_case(rng, q, kb, nd, base_n, ns=None, d=24, w=2):
+    """The CPU test's live grid: candidates with −1 ids, NaN, ±inf, past
+    PAD_SCORE and ±0.0; one in five rows tombstoned; an optional sel."""
+    qv, qb, dvec, dn, dbm = _tie_case(rng, q, max(nd, 1), d, w)
+    dvec, dn, dbm = dvec[:nd], dn[:nd], dbm[:nd]
+    cd = (rng.integers(-40, 400, (q, kb)) / 4.0).astype(np.float32)
+    ci = rng.integers(0, base_n, (q, kb)).astype(np.int32)
+    for val, frac in ((np.nan, 0.03), (np.inf, 0.03), (-np.inf, 0.02),
+                      (np.float32(3.1e38), 0.02), (np.float32(-0.0), 0.05),
+                      (np.float32(0.0), 0.05)):
+        cd[rng.random(cd.shape) < frac] = val
+    ci[rng.random(ci.shape) < 0.1] = -1
+    tomb = rng.random(base_n + nd) < 0.2
+    words = np.zeros(-(-(base_n + nd) // 4096) * 128, np.uint32)
+    packed = np.packbits(tomb, bitorder="little")
+    words.view(np.uint8)[: packed.size] = packed
+    sel = None
+    if ns is not None:
+        sel = np.sort(rng.choice(nd, size=min(ns, nd), replace=False)
+                      ).astype(np.int32)
+        sel = np.concatenate([sel, np.full(3, -1, np.int32)])
+    return qv, qb, cd, ci, dvec, dn, dbm, words, sel
+
+
+@pytest.mark.parametrize("pred", [0, 1, 2])
+@pytest.mark.parametrize("q,kb,nd,k,ns", [
+    (5, 1, 200, 10, None), (4, 300, 150, 10, None), (7, 3, 64, 41, None),
+    (3, 8, 5, 30, None), (6, 20, 0, 10, None), (37, 1016, 5000, 10, None),
+    (5, 40, 300, 10, 90), (2, 1, 100, 20, 40), (20, 1016, 70000, 10, 30000),
+    (3, 50, 2000, 128, 700)])
+def test_fused_live_kernel_bitwise_on_grid(cuda, pred, q, kb, nd, k, ns):
+    """Both variants (all delta rows; the rows `sel` picks) against the
+    plain version on the grid: ids and distance bits, −0.0 included."""
+    base_n = 5000
+    qv, qb, cd, ci, dvec, dn, dbm, words, sel = _live_case(
+        np.random.default_rng(q + kb + nd), q, kb, nd, base_n, ns=ns)
+    on = lambda a: torch.from_numpy(
+        a.view(np.int32) if a.dtype == np.uint32 else a).to(cuda)
+    args = tuple(map(on, (qv, qb, cd, ci, dvec, dn, dbm, words)))
+    s = None if sel is None else on(sel)
+    before = mk.fused_live_accum.launches
+    gd, gi = mk.fused_live_accum(*args, base_n=base_n, sel=s, pred=pred, k=k)
+    pd, pi = mk.fused_live_plain(*args, base_n=base_n, sel=s, pred=pred,
+                                 k=k)
+    torch.cuda.synchronize()
+    assert mk.fused_live_accum.launches == before + 1
+    assert torch.equal(gi, pi)
+    assert torch.equal(gd.view(torch.int32), pd.view(torch.int32))
+
+
+def test_fused_live_kernel_delta_scores_equal_masked_topk(cuda):
+    """Random fp32, no base candidates, no tombstones: the fused kernel's
+    delta scores are the masked_topk kernel's bit for bit (one FMA
+    chain), so the fused and staged live paths agree exactly."""
+    rng = np.random.default_rng(8)
+    q, nd, d, w = 40, 20000, 192, 7
+    qv = torch.from_numpy(rng.normal(size=(q, d)).astype(np.float32)).to(cuda)
+    qb = torch.from_numpy(rng.integers(0, 3, (q, w)).astype(np.int32)).to(cuda)
+    dv = torch.from_numpy(rng.normal(size=(nd, d)).astype(np.float32)).to(cuda)
+    dn = (dv.double() ** 2).sum(1).float()
+    db = torch.from_numpy(rng.integers(0, 8, (nd, w)).astype(np.int32)).to(cuda)
+    cand_d = torch.full((q, 1), mk.PAD_SCORE, device=cuda)
+    cand_i = torch.full((q, 1), -1, dtype=torch.int32, device=cuda)
+    words = torch.zeros(-(-(nd + 10) // 32), dtype=torch.int32, device=cuda)
+    for pred in (0, 1, 2):
+        fd, fi = mk.fused_live_accum(qv, qb, cand_d, cand_i, dv, dn, db,
+                                     words, base_n=10, pred=pred, k=10)
+        md, mi = mk.masked_topk_accum(qv, qb, dv, dn, db, pred=pred, k=10)
+        torch.cuda.synchronize()
+        assert torch.equal(fi, torch.where(mi >= 0, mi + 10, mi))
+        assert torch.equal(fd, md)

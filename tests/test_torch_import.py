@@ -85,7 +85,8 @@ def test_kernel_wrappers_refuse_other_devices():
     norms = torch.empty((5,), device=meta)
     bm = torch.empty((5, 1), dtype=torch.int32, device=meta)
     wrappers = (mk.masked_topk_accum, mk.masked_topk_blocks,
-                mk.merge_topk_accum, bf.selectivity_count)
+                mk.merge_topk_accum, bf.selectivity_count,
+                mk.masked_topk_large, mk.fused_live_accum)
     before = [fn.launches for fn in wrappers]
     with pytest.raises(ValueError, match="cuda or cpu"):
         mk.masked_topk_accum(q, qb, base, norms, bm, pred=0, k=3)
@@ -97,4 +98,14 @@ def test_kernel_wrappers_refuse_other_devices():
                                         device=meta), k=3)
     with pytest.raises(ValueError, match="cuda or cpu"):
         bf.selectivity_count(qb, bm, pred=0)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        mk.masked_topk_accum(q, qb, base, norms, bm, pred=0, k=300)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        mk.masked_topk_large(q, qb, base, norms, bm, pred=0, k=300)
+    cand_d = torch.empty((2, 4), device=meta)
+    cand_i = torch.empty((2, 4), dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        mk.fused_live_accum(q, qb, cand_d, cand_i, base, norms, bm,
+                            torch.empty((4,), dtype=torch.int32, device=meta),
+                            base_n=10, pred=0, k=3)
     assert [fn.launches for fn in wrappers] == before

@@ -78,6 +78,22 @@ def test_masked_topk_plain_bitwise_on_tie_grid(pred, q, n, k):
                     *jops.masked_topk(*_jax(case), pred=pred, k=k))
 
 
+@pytest.mark.parametrize("pred", [0, 1, 2])
+@pytest.mark.parametrize("q,n,k", [(3, 2000, 129), (2, 3001, 1016),
+                                   (4, 700, 1016)])
+def test_masked_topk_plain_large_k_matches_reference(pred, q, n, k):
+    """k past MAX_K (the live path's overfetch: 1,016 at 1,000 deletes and
+    k = 10), on the tie grid: bit-identical to the reference's off-TPU
+    `ops.masked_topk`, ties to the lowest row, fill past the matches."""
+    case = _tie_case(np.random.default_rng(q * 13 + n), q, n)
+    ids, dists = tops.masked_topk(*_torch(case), pred=pred, k=k)
+    assert ids.shape == (q, k)
+    _assert_bitwise(ids, dists,
+                    *jops.masked_topk(*_jax(case), pred=pred, k=k))
+    d, i = mk.masked_topk_large(*_torch(case), pred=pred, k=k)
+    _assert_bitwise(*tops._clean(i, d), ids, dists)
+
+
 def test_masked_topk_raw_sentinels():
     """The raw output keeps the TPU kernel's fill: (PAD_SCORE, -1) past
     the match count; `ops.masked_topk` turns it into (-1, +inf)."""
@@ -158,11 +174,13 @@ def test_selectivity_plain_exact(pred, tiny_ds, tiny_queries):
 
 
 def test_masked_topk_rejects_what_the_kernel_does_not_take():
-    args = _torch(_tie_case(np.random.default_rng(2), 4, 64))
-    with pytest.raises(ValueError, match=str(mk.MAX_K)):
-        mk.masked_topk_accum(*args, pred=1, k=mk.MAX_K + 1)
-    with pytest.raises(ValueError, match=str(mk.MAX_K)):
-        tops.masked_topk(*args, pred=1, k=mk.MAX_K + 1)
+    case = _tie_case(np.random.default_rng(2), 4, 64)
+    args = _torch(case)
+    # k past MAX_K is taken, as the reference takes it (here k > N too)
+    want = jops.masked_topk(*_jax(case), pred=1, k=mk.MAX_K + 1)
+    d, i = mk.masked_topk_accum(*args, pred=1, k=mk.MAX_K + 1)
+    _assert_bitwise(*tops._clean(i, d), *want)
+    _assert_bitwise(*tops.masked_topk(*args, pred=1, k=mk.MAX_K + 1), *want)
     with pytest.raises(ValueError):
         mk.masked_topk_accum(*args, pred=1, k=0)
     assert mk.masked_topk_accum(*args, pred=1, k=mk.MAX_K)[0].shape == \
@@ -518,3 +536,132 @@ def test_topk_merge_matches_reference():
         np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
         np.testing.assert_array_equal(gs.numpy().view(np.int32),
                                       np.asarray(rs).view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# fused live read
+# ---------------------------------------------------------------------------
+
+def _live_case(rng, q, kb, nd, base_n, grid=True, ns=None, d=24, w=2):
+    """Queries, base candidates and a delta mirror with tombstones in both.
+    On the grid (multiples of 1/4, duplicated rows) every score is exact
+    in fp32 and ties are frequent. Candidates carry −1 ids, NaN, ±inf,
+    values past PAD_SCORE, ±0.0 and repeated grid values; one in five
+    base and delta rows is tombstoned. `ns` adds a pruner-style `sel`
+    (sorted rows, −1 pads)."""
+    qv, qb, dvec, dn, dbm = _tie_case(rng, q, max(nd, 1), d, w)
+    if not grid:
+        qv = rng.normal(size=qv.shape).astype(np.float32)
+        dvec = rng.normal(size=dvec.shape).astype(np.float32)
+        dn = (dvec.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    dvec, dn, dbm = dvec[:nd], dn[:nd], dbm[:nd]
+    cd = (rng.integers(-40, 400, (q, kb)) / 4.0).astype(np.float32)
+    if not grid:
+        cd = rng.normal(scale=20.0, size=(q, kb)).astype(np.float32)
+    ci = rng.integers(0, base_n, (q, kb)).astype(np.int32)
+    for val, frac in ((np.nan, 0.03), (np.inf, 0.03), (-np.inf, 0.02),
+                      (np.float32(3.1e38), 0.02), (np.float32(-0.0), 0.05),
+                      (np.float32(0.0), 0.05)):
+        cd[rng.random(cd.shape) < frac] = val
+    ci[rng.random(ci.shape) < 0.1] = -1
+    tomb = rng.random(base_n + nd) < 0.2
+    words = np.zeros(-(-(base_n + nd) // 4096) * 128, np.uint32)
+    packed = np.packbits(tomb, bitorder="little")
+    words.view(np.uint8)[: packed.size] = packed
+    sel = None
+    if ns is not None:
+        sel = np.sort(rng.choice(nd, size=min(ns, nd), replace=False)
+                      ).astype(np.int32)
+        sel = np.concatenate([sel, np.full(3, -1, np.int32)])
+    return qv, qb, ci, cd, dvec, dn, dbm, words, sel
+
+
+def _live_both(case, base_n, pred, k):
+    """(port, reference) results of fused_live_topk(_select)."""
+    qv, qb, ci, cd, dvec, dn, dbm, words, sel = case
+    t = (torch.from_numpy(qv), tlb.bitmap_tensor(qb, "cpu"),
+         torch.from_numpy(ci), torch.from_numpy(cd), torch.from_numpy(dvec),
+         torch.from_numpy(dn), tlb.bitmap_tensor(dbm, "cpu"))
+    tw = tlb.bitmap_tensor(words, "cpu")
+    j = tuple(jnp.asarray(a) for a in (qv, qb, ci, cd, dvec, dn, dbm))
+    jw = jnp.asarray(words)
+    if sel is None:
+        got = tops.fused_live_topk(*t, base_n, tw, pred=pred, k=k)
+        want = jops.fused_live_topk(*j, np.int32(base_n), jw, pred=pred, k=k)
+    else:
+        got = tops.fused_live_topk_select(*t, torch.from_numpy(sel), base_n,
+                                          tw, pred=pred, k=k)
+        want = jops.fused_live_topk_select(*j, jnp.asarray(sel),
+                                           np.int32(base_n), jw, pred=pred,
+                                           k=k)
+    return got, want
+
+
+# (q, kb, nd, k, ns): KB = 0, KB >> k, KB < k, k past every candidate,
+# an empty delta, and a pruner's sel with pads
+LIVE_CASES = [(5, 0, 200, 10, None), (4, 300, 150, 10, None),
+              (7, 3, 64, 41, None), (3, 8, 5, 30, None), (6, 20, 0, 10, None),
+              (5, 40, 300, 10, 90), (2, 0, 100, 20, 40)]
+
+
+@pytest.mark.parametrize("pred", [0, 1, 2])
+@pytest.mark.parametrize("q,kb,nd,k,ns", LIVE_CASES)
+def test_fused_live_plain_bitwise_on_grid(pred, q, kb, nd, k, ns):
+    """On the grid the port's fused live read is the reference's off-TPU
+    `ops.fused_live_topk(_select)` bit for bit: the candidate cleanup
+    (−1, NaN, ±inf, past PAD_SCORE, tombstones), the delta mask, the
+    fold order (base first; −0.0 before +0.0), the fill and the pads."""
+    base_n = 500
+    case = _live_case(np.random.default_rng(q * 7 + kb + nd), q, kb, nd,
+                      base_n, ns=ns)
+    (ids, dists), want = _live_both(case, base_n, pred, k)
+    assert ids.shape == (q, k) and ids.dtype == torch.int32
+    _assert_bitwise(ids, dists, *want)
+    np.testing.assert_array_equal(
+        np.signbit(dists.numpy()), np.signbit(np.asarray(want[1])))
+
+
+@pytest.mark.parametrize("pred", [0, 1, 2])
+@pytest.mark.parametrize("ns", [None, 120])
+def test_fused_live_plain_random_floats(pred, ns):
+    """Random floats: ids equal, distances to fp32 rounding (the port's
+    matmul and XLA's sum the delta dots in different orders; the scale
+    keeps every gap between neighbours far above that rounding)."""
+    base_n = 400
+    case = _live_case(np.random.default_rng(40 + pred), 6, 200, 300,
+                      base_n, grid=False, ns=ns, d=32)
+    (ids, dists), (want_i, want_d) = _live_both(case, base_n, pred, 10)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(dists.numpy(), np.asarray(want_d),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_tombstone_bits_plain_matches_reference():
+    rng = np.random.default_rng(5)
+    words = rng.integers(0, 2 ** 32, 4, dtype=np.uint64).astype(np.uint32)
+    ids = np.array([-1, 0, 5, 31, 32, 63, 127, 128, 500], np.int32)
+    got = mk.tombstone_bits_plain(tlb.bitmap_tensor(words, "cpu"),
+                                  torch.from_numpy(ids)).numpy()
+    want = np.asarray(jmk._tombstone_bits(jnp.asarray(words),
+                                          jnp.asarray(ids)))
+    np.testing.assert_array_equal(got, want)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    np.testing.assert_array_equal(got[1:7], bits[ids[1:7]].astype(bool))
+
+
+def test_fused_live_rejects():
+    case = _live_case(np.random.default_rng(1), 2, 5, 20, 50)
+    qv, qb, ci, cd, dvec, dn, dbm, words, _ = case
+    args = (torch.from_numpy(qv), tlb.bitmap_tensor(qb, "cpu"),
+            torch.from_numpy(cd), torch.from_numpy(ci),
+            torch.from_numpy(dvec), torch.from_numpy(dn),
+            tlb.bitmap_tensor(dbm, "cpu"), tlb.bitmap_tensor(words, "cpu"))
+    with pytest.raises(ValueError, match=str(mk.MAX_K)):
+        mk.fused_live_accum(*args, base_n=50, pred=0, k=mk.MAX_K + 1)
+    with pytest.raises(ValueError, match="pred"):
+        mk.fused_live_accum(*args, base_n=50, pred=3, k=5)
+    with pytest.raises(TypeError, match="float32"):
+        mk.fused_live_accum(args[0].double(), *args[1:], base_n=50, pred=0,
+                            k=5)
+    with pytest.raises(ValueError, match="shape"):
+        mk.fused_live_accum(*args[:7], args[7][:0], base_n=50, pred=0, k=5)

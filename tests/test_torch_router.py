@@ -93,7 +93,8 @@ def test_feature_matrix_bit_identical(pred, tiny_ds, tds, tiny_queries):
 
 def test_stacked_mlp_matches_jax_forward(jrouter):
     x = np.random.default_rng(0).normal(size=(17, 5)).astype(np.float32)
-    net = tmlp.StackedMLP([jrouter.models[m] for m in METHODS])
+    net = tmlp.StackedMLP([jrouter.models[m] for m in METHODS],
+                          device="cpu")
     got = net(torch.from_numpy(x)).detach().numpy()
     want = np.asarray(jmlp.forward_stacked(jrouter.stacked_params(),
                                            jnp.asarray(x)))
@@ -109,10 +110,10 @@ def test_stacked_mlp_matches_jax_forward(jrouter):
 def _same_routing(jr, tr, jds, tds, queries, t):
     for pred, qs in queries.items():
         a = jr.predict_recalls(jds, qs.bitmaps, pred)
-        b = tr.predict_recalls(tds, qs.bitmaps, pred)
+        b = tr.predict_recalls(tds, qs.bitmaps, pred, device="cpu")
         assert a.shape == b.shape == (qs.q, len(METHODS))
         np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
-        assert tr.route(tds, qs.bitmaps, pred, t) == \
+        assert tr.route(tds, qs.bitmaps, pred, t, device="cpu") == \
             jr.route(jds, qs.bitmaps, pred, t)
 
 
@@ -149,3 +150,22 @@ def test_committed_artifact_routes_alike(tiny_ds, tds, tiny_queries):
         r_hat = np.random.default_rng(pred).uniform(0.5, 1.0, (40, 2))
         assert tr.route_from_predictions(r_hat, "laion", pred, 0.9) == \
             jr.route_from_predictions(r_hat, "laion", pred, 0.9)
+
+
+def test_router_entry_points_default_to_the_card(jrouter, tds, monkeypatch):
+    """Without a handle the MLPs run where `device=` says: "cuda" by
+    default, which raises without a card instead of moving to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tr = TRouter.load(ASSET)
+    qbms = tds.bitmaps[:4]
+    x = np.zeros((4, len(tr.scaler.mean)), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tr.predict_recalls(tds, qbms, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tr.predict_recalls_from_features(x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmlp.StackedMLP([jrouter.models[m] for m in METHODS])
+    assert tr.predict_recalls(tds, qbms, 1, device="cpu").shape == \
+        (4, len(tr.methods))
+    assert tr.predict_recalls_from_features(x, device="cpu").shape == \
+        (4, len(tr.methods))
