@@ -58,6 +58,23 @@ not 0):
              `compact()` (the compacted index equal to a fresh
              `FilteredIndex` over its dataset, `last_remap` translating
              ids). Then profiles and times of the live path and kernels.
+9. any k   — slice 4: the select of the k > 128 paths, `merge_topk`,
+             `fused_live` and `masked_topk_blocks` past k = 128 and the
+             register-blocked tile scan (odd and wide D, bf16, W = 1 and
+             8, ragged query groups) against their plain versions, bit-
+             identical on grids; then, with the launch counts set to 0
+             just before and read just after, k = 200 (a reranking stage's
+             candidate count) on the three exact batches through
+             `ShardedFilteredIndex(ds, 4).search` (bit-identical to the
+             single index), `LiveFilteredIndex.search` fused and staged
+             (bit-identical to each other, the first GT_QUERIES against the
+             host exact answer) and `ops.masked_topk_multiblock` (equal to
+             `ops.masked_topk`, whose answers are made before the counts
+             are set to 0). `masked_topk_large` and `masked_topk_blocks`
+             are held to their plain versions at k = 200 on the paths'
+             inputs (phases 7 and 8) and timed at k = 200 too. PERF.md's
+             earlier times are printed on a line of their own, labelled
+             as copied.
 
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON line and `{"ok": true, "device": {...}}`. Without a CUDA device the
@@ -135,6 +152,21 @@ LIVE_DELTA_DELETES = 500
 LIVE_CHUNK = 512
 
 PRED_NAMES = ("EQUALITY", "AND", "OR")
+
+# Slice 4: the any-k phase's k, a reranking stage's candidate count.
+ANY_K = 200
+
+# Each kernel's time per predicate (E, A, O) before the select and the
+# tile scan were redesigned, copied from PERF.md's kernel table (this
+# script's earlier runs on an NVIDIA H100 80GB HBM3 at 700 W). Not
+# measured by this run: printed on a line of their own, labelled so, and
+# kept out of the kernels' line.
+EARLIER_MS = {"masked_topk": (0.563, 1.944, 2.981),
+              "selectivity": (0.485, 0.618, 0.582),
+              "merge_topk": (0.0106, 0.0106, 0.0108),
+              "masked_topk_blocks": (1.674, 6.344, 10.385),
+              "fused_live": (0.390, 0.798, 1.041),
+              "masked_topk_large": (2.820, 4.520, 5.260)}
 
 # Every kernel wrapper and its launch counter, by the name the kernels'
 # JSON line gives it.
@@ -442,7 +474,9 @@ def check_slice2_kernels(dev, fx, batches: dict) -> dict:
             tie_cases += 1
 
     # the paths' inputs over the 1M rows: masked_topk_blocks on each whole
-    # 256-query exact batch, as ops.masked_topk_multiblock gets it, and
+    # 256-query exact batch at its k and at ANY_K, as
+    # ops.masked_topk_multiblock gets it in the multi-block and any-k
+    # phases, and
     # bf16 masked_topk on its first 64-query chunk, as exact search cuts
     # it; scores from two summation orders, held as `hold_to_plain` says.
     # bf16 products are exact in fp32, so the same bound holds for them,
@@ -456,12 +490,13 @@ def check_slice2_kernels(dev, fx, batches: dict) -> dict:
         qn = float(qv.norm(dim=1).max())
         tol = 2 * d * 2.0 ** -24 * (vn * vn + 2 * qn * vn) * 1.01
         args = (qv, qb, dd.vectors, dd.norms, dd.bitmaps)
-        gd, gi = mk.masked_topk_blocks(*args, pred=pred, k=batch.k)
-        pd, pi = mk.masked_topk_blocks_plain(*args, pred=pred, k=batch.k)
-        errs["masked_topk_blocks"] = max(errs["masked_topk_blocks"],
-                                         hold_to_plain(
-            "masked_topk_blocks", pred, args, gd, gi, pd, pi, tol))
-        del gd, gi, pd, pi
+        for k in (batch.k, ANY_K):
+            gd, gi = mk.masked_topk_blocks(*args, pred=pred, k=k)
+            pd, pi = mk.masked_topk_blocks_plain(*args, pred=pred, k=k)
+            errs["masked_topk_blocks"] = max(errs["masked_topk_blocks"],
+                                             hold_to_plain(
+                "masked_topk_blocks", pred, args, gd, gi, pd, pi, tol))
+            del gd, gi, pd, pi
         qv, qb = qv[:DEFAULT_QCHUNK], qb[:DEFAULT_QCHUNK]
         args = (qv.bfloat16(), qb, base16, dd.norms, dd.bitmaps)
         gd, gi = mk.masked_topk_accum(*args, pred=pred, k=10)
@@ -544,6 +579,7 @@ def time_slice2_kernels(fx, sfx, batches: dict, dev) -> dict:
     out = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_s=0.0,
                       ops_s=0.0, bytes_s=0.0)
            for name in ("masked_topk_blocks", "merge_topk")}
+    out["masked_topk_blocks"].update(k200_ms=0.0, k200_bound_s=0.0)
 
     def add(name, ms, plain_ms, bound, library_ms=0.0):
         o = out[name]
@@ -565,12 +601,21 @@ def time_slice2_kernels(fx, sfx, batches: dict, dev) -> dict:
         pms = time_ms(lambda: mk.masked_topk_blocks_plain(*args, pred=pred,
                                                           k=batch.k),
                       5, flush)
-        t_ops, t_bytes = masked_topk_bound(
-            mk._predicate_mask_block(dd.bitmaps, qb, pred), d, w, batch.k)
+        mask = mk._predicate_mask_block(dd.bitmaps, qb, pred)
         nb = -(-n // mk.DEFAULT_BN)
-        bound = (t_ops, t_bytes + (nb - 1) * batch.q * batch.k * 8
-                 / HBM_BYTES_S)
+
+        def blocks_bound(k):
+            t_ops, t_bytes = masked_topk_bound(mask, d, w, k)
+            return (t_ops, t_bytes + (nb - 1) * batch.q * k * 8
+                    / HBM_BYTES_S)
+        bound = blocks_bound(batch.k)
         add("masked_topk_blocks", ms, pms, bound)
+        b200_ms = time_ms(lambda: mk.masked_topk_blocks(*args, pred=pred,
+                                                        k=ANY_K), 10, flush)
+        b200 = blocks_bound(ANY_K)
+        out["masked_topk_blocks"]["k200_ms"] += b200_ms
+        out["masked_topk_blocks"]["k200_bound_s"] += max(b200)
+        del mask
         args16 = (qv[:DEFAULT_QCHUNK].bfloat16(), qb[:DEFAULT_QCHUNK],
                   base16, dd.norms, dd.bitmaps)
         bf16_ms = time_ms(lambda: mk.masked_topk_accum(*args16, pred=pred,
@@ -594,11 +639,93 @@ def time_slice2_kernels(fx, sfx, batches: dict, dev) -> dict:
              masked_topk_blocks_q=batch.q, masked_topk_blocks_ms=ms,
              masked_topk_blocks_plain_ms=pms,
              masked_topk_blocks_bound_ms=max(bound) * 1e3,
+             masked_topk_blocks_k200_ms=b200_ms,
+             masked_topk_blocks_k200_bound_ms=max(b200) * 1e3,
              merge_topk_shape=[s_, q_, kk], merge_topk_ms=mms,
              merge_topk_plain_ms=mpms, merge_topk_torch_topk_ms=lms,
              merge_topk_bound_ms=max(mbound) * 1e3)
     del flush, base16
     return out
+
+
+def check_slice4_grids(dev) -> dict:
+    """Slice 4's kernels against their plain versions on grids, bit for
+    bit: the select of the k > 128 paths (k = 129, 200, 1,016 and 20,000,
+    the last past the shared-memory sort; every passing key equal, so
+    the ties at T straddle the blocks' ranges; a query that passes no
+    row; k past N), `merge_topk` at k = 200 in warp and block mode,
+    `fused_live` at k = 200 with and without `sel` and a −0.0 base
+    candidate, `masked_topk_blocks` at k = 200 with a ragged last block,
+    and the register-blocked scan at odd and wide D, bf16, W = 1 and 8
+    and query counts that are not a multiple of the block's. Returns the
+    number of cases of each."""
+    rng = np.random.default_rng(4)
+    cases = {"select": 0, "merge_topk": 0, "fused_live": 0,
+             "masked_topk_blocks": 0, "scan": 0}
+
+    def same(what, got, want, bits=False):
+        torch.cuda.synchronize()
+        (gd, gi), (pd, pi) = got, want
+        eq_d = (torch.equal(gd.view(torch.int32), pd.view(torch.int32))
+                if bits else torch.equal(gd, pd))
+        if not (torch.equal(gi, pi) and eq_d):
+            raise AssertionError(f"{what} differs from its plain version")
+        cases[what.split(" ")[0]] += 1
+
+    qv, qb, base, norms, bm = tie_case(rng, 4, 100_003)
+    base[:] = base[0]                      # every passing key equal
+    norms[:] = norms[0]
+    bm[rng.random(bm.shape[0]) < 0.3] = 0
+    qb[1] = 0x7fffffff                     # AND/EQUALITY: no row passes
+    flat = on_card(dev, qv, qb, base, norms, bm)
+    for k in (129, ANY_K, 1016, 20_000):
+        for pred in range(3):
+            same(f"select flat k {k} pred {pred}",
+                 mk.masked_topk_large(*flat, pred=pred, k=k),
+                 mk.masked_topk_plain(*flat, pred=pred, k=k))
+    for q, n, k in [(3, 5000, 6000), (33, 70_001, ANY_K), (2, 4097, 129)]:
+        args = on_card(dev, *tie_case(rng, q, n))
+        for pred in range(3):
+            same(f"select q {q} n {n} k {k} pred {pred}",
+                 mk.masked_topk_large(*args, pred=pred, k=k),
+                 mk.masked_topk_plain(*args, pred=pred, k=k))
+    for s_, q, kk in [(3, 40, 100), (977, 9, 10), (40, 7, 30)]:
+        dt, it = on_card(dev, *merge_grid(rng, s_, q, kk))
+        same(f"merge_topk S {s_}", mk.merge_topk_accum(dt, it, k=ANY_K),
+             mk.merge_topk_plain(dt, it, k=ANY_K), bits=True)
+    base_n = 5000
+    for q, kb, nd, ns in [(37, 1016, 5000, None), (20, 1016, 70_000, 30_000),
+                          (5, 300, 200, None), (33, 0, 9000, 6000)]:
+        *arrays, sel = live_grid(rng, q, kb, nd, base_n, ns)
+        if kb:
+            arrays[2][:, 0], arrays[2][:, 1] = np.float32(0.0), np.float32(-0.0)
+        args = on_card(dev, *arrays)
+        s = None if sel is None else on_card(dev, sel)[0]
+        for pred in range(3):
+            same(f"fused_live KB {kb} sel {ns} pred {pred}",
+                 mk.fused_live_accum(*args, base_n=base_n, sel=s, pred=pred,
+                                     k=ANY_K),
+                 mk.fused_live_plain(*args, base_n=base_n, sel=s, pred=pred,
+                                     k=ANY_K), bits=True)
+    for q, n, bn in [(7, 5000, 1000), (3, 20_000, 8192), (40, 3001, 256)]:
+        args = on_card(dev, *tie_case(rng, q, n))
+        for pred in range(3):
+            same(f"masked_topk_blocks n {n} bn {bn} pred {pred}",
+                 mk.masked_topk_blocks(*args, pred=pred, k=ANY_K, bn=bn),
+                 mk.masked_topk_blocks_plain(*args, pred=pred, k=ANY_K,
+                                             bn=bn), bits=True)
+    for q, n, d, w in [(33, 3001, 5, 1), (45, 5000, 192, 8),
+                       (17, 2500, 192, 1), (70, 4099, 37, 3),
+                       (3, 700, 1300, 2)]:
+        args = on_card(dev, *tie_case(rng, q, n, d, w))
+        b16 = (args[0].bfloat16(), args[1], args[2].bfloat16(), *args[3:])
+        for a in (args, b16):
+            for pred in range(3):
+                for k in (10, ANY_K):
+                    same(f"scan q {q} d {d} w {w} {a[0].dtype} k {k}",
+                         mk.masked_topk_accum(*a, pred=pred, k=k),
+                         mk.masked_topk_plain(*a, pred=pred, k=k))
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -1097,10 +1224,10 @@ def hold_fused_to_plain(pred: int, args, kw, gd, gi, pd, pi,
 def check_live_path_kernels(live, batches: dict) -> dict:
     """The live path's kernels on its own inputs against their plain
     versions: `fused_live` on each exact batch's (256 queries, 1,016
-    base candidates a query, the delta mirror, the pruner's rows),
-    the k > MAX_K top-k on the first 64-query chunk of each base
-    overfetch (k = 1,016 over the 1M base rows). Returns max abs
-    errors."""
+    base candidates a query, the delta mirror, the pruner's rows) at the
+    batch's k and at ANY_K, the k > MAX_K top-k on the first 64-query
+    chunk of each base overfetch (k = 1,016 and ANY_K over the 1M base
+    rows). Returns max abs errors."""
     dd = live.device
     d = dd.vectors.shape[1]
     errs = {"fused_live": 0.0, "masked_topk_large": 0.0}
@@ -1110,24 +1237,26 @@ def check_live_path_kernels(live, batches: dict) -> dict:
         vn = max(float(dd.norms.max()), float((dvec ** 2).sum(1).max())) ** 0.5
         qn = float(qv.norm(dim=1).max())
         tol = 2 * d * 2.0 ** -24 * (vn * vn + 2 * qn * vn)
-        gd, gi = mk.fused_live_accum(*args, **kw, pred=pred, k=batch.k)
-        pd, pi = mk.fused_live_plain(*args, **kw, pred=pred, k=batch.k)
-        errs["fused_live"] = max(errs["fused_live"], hold_fused_to_plain(
-            pred, args, kw, gd, gi, pd, pi, tol))
-        emit("live.kernels.fused_live.random", pred=PRED_NAMES[pred],
-             q=batch.q, kb=kb, delta_rows=int(dvec.shape[0]),
-             scanned=int(dvec.shape[0] if kw["sel"] is None
-                         else kw["sel"].shape[0]),
-             max_abs_err=errs["fused_live"], tol=tol,
-             ids_differing=int(((gi != pi) & (gi >= 0)).sum()))
+        for k in (batch.k, ANY_K):
+            gd, gi = mk.fused_live_accum(*args, **kw, pred=pred, k=k)
+            pd, pi = mk.fused_live_plain(*args, **kw, pred=pred, k=k)
+            err = hold_fused_to_plain(pred, args, kw, gd, gi, pd, pi, tol)
+            errs["fused_live"] = max(errs["fused_live"], err)
+            emit("live.kernels.fused_live.random", pred=PRED_NAMES[pred],
+                 q=batch.q, kb=kb, k=k, delta_rows=int(dvec.shape[0]),
+                 scanned=int(dvec.shape[0] if kw["sel"] is None
+                             else kw["sel"].shape[0]),
+                 max_abs_err=err, tol=tol,
+                 ids_differing=int(((gi != pi) & (gi >= 0)).sum()))
         base = (qv[:DEFAULT_QCHUNK], args[1][:DEFAULT_QCHUNK], dd.vectors,
                 dd.norms, dd.bitmaps)
-        gd, gi = mk.masked_topk_large(*base, pred=pred, k=kb)
-        pd, pi = mk.masked_topk_plain(*base, pred=pred, k=kb)
-        errs["masked_topk_large"] = max(
-            errs["masked_topk_large"],
-            hold_to_plain("masked_topk_large", pred, base, gd, gi, pd, pi,
-                          tol))
+        for k in (kb, ANY_K):
+            gd, gi = mk.masked_topk_large(*base, pred=pred, k=k)
+            pd, pi = mk.masked_topk_plain(*base, pred=pred, k=k)
+            errs["masked_topk_large"] = max(
+                errs["masked_topk_large"],
+                hold_to_plain("masked_topk_large", pred, base, gd, gi, pd,
+                              pi, tol))
     return errs
 
 
@@ -1394,6 +1523,7 @@ def time_live_kernels(live, batches: dict, dev) -> dict:
     out = {name: dict(ms=0.0, plain_ms=0.0, bound_s=0.0, ops_s=0.0,
                       bytes_s=0.0) for name in ("fused_live",
                                                 "masked_topk_large")}
+    out["masked_topk_large"].update(k200_ms=0.0, k200_bound_s=0.0)
 
     def add(name, ms, plain_ms, bound):
         o = out[name]
@@ -1427,9 +1557,14 @@ def time_live_kernels(live, batches: dict, dev) -> dict:
                       10, flush)
         lpms = time_ms(lambda: mk.masked_topk_plain(*base, pred=pred, k=kb),
                        5, flush)
-        lbound = masked_topk_bound(
-            mk._predicate_mask_block(dd.bitmaps, base[1], pred), d, w, kb)
+        lmask = mk._predicate_mask_block(dd.bitmaps, base[1], pred)
+        lbound = masked_topk_bound(lmask, d, w, kb)
         add("masked_topk_large", lms, lpms, lbound)
+        l200 = time_ms(lambda: mk.masked_topk_large(*base, pred=pred,
+                                                    k=ANY_K), 10, flush)
+        b200 = masked_topk_bound(lmask, d, w, ANY_K)
+        out["masked_topk_large"]["k200_ms"] += l200
+        out["masked_topk_large"]["k200_bound_s"] += max(b200)
         emit("live.kernels.time", pred=PRED_NAMES[pred], fused_live_q=batch.q,
              fused_live_kb=kb, fused_live_scanned=int(rows.shape[0]),
              fused_live_pairs=int(mask.sum()), fused_live_ms=ms,
@@ -1440,9 +1575,80 @@ def time_live_kernels(live, batches: dict, dev) -> dict:
              masked_topk_large_ms=lms, masked_topk_large_plain_ms=lpms,
              masked_topk_large_bound_ms=max(lbound) * 1e3,
              masked_topk_large_bound_ops_ms=lbound[0] * 1e3,
-             masked_topk_large_bound_bytes_ms=lbound[1] * 1e3)
+             masked_topk_large_bound_bytes_ms=lbound[1] * 1e3,
+             masked_topk_large_k200_ms=l200,
+             masked_topk_large_k200_bound_ms=max(b200) * 1e3)
     del flush
     return out
+
+
+def anyk_batches(batches: dict) -> dict:
+    return {p: QueryBatch(b.vectors, b.bitmaps, b.pred, ANY_K)
+            for p, b in batches.items()}
+
+
+def anyk_args(fx, batch):
+    """`batch` on the card beside the index's rows, as `ops.masked_topk`
+    and `ops.masked_topk_multiblock` take them."""
+    dd = fx.device
+    return (to_device(batch.vectors, fx.torch_device),
+            to_device(batch.bitmaps, fx.torch_device), dd.vectors, dd.norms,
+            dd.bitmaps)
+
+
+def anyk_answers(fx, batches: dict) -> tuple[dict, dict]:
+    """The any-k phase's reference answers, made before its launch counts
+    are set to 0: the single index's search and `ops.masked_topk` (ids,
+    distances) for each batch."""
+    want = {p: fx.search(b, "prefilter") for p, b in batches.items()}
+    want_mb = {p: ops.masked_topk(*anyk_args(fx, b), pred=p, k=b.k)
+               for p, b in batches.items()}
+    torch.cuda.synchronize()
+    return want, want_mb
+
+
+def run_anyk(fx, sfx, live, batches: dict, want: dict, want_mb: dict,
+             n_gt: int) -> None:
+    """The any-k phase: each exact batch at k = ANY_K through the sharded
+    handle `sfx` (bit-identical to the single index's answers in `want`),
+    the live handle `live` fused and staged (bit-identical to each other,
+    the first `n_gt` queries against the host exact answer over the live
+    rows), and `ops.masked_topk_multiblock` (equal to `ops.masked_topk`'s
+    answers in `want_mb`). `anyk_answers` makes both references."""
+    rows = live_rows(live)
+    for pred, batch in batches.items():
+        res = sfx.search(batch, "prefilter")
+        single = want[pred]
+        if not (np.array_equal(res.ids, single.ids) and np.array_equal(
+                res.distances.view(np.int32), single.distances.view(np.int32))):
+            raise AssertionError(f"sharded k = {ANY_K} differs from the "
+                                 f"single index, {PRED_NAMES[pred]}")
+        fused = live.search(batch, "prefilter")
+        live.fused = False
+        try:
+            staged = live.search(batch, "prefilter")
+        finally:
+            live.fused = True
+        if not same_bits(fused, staged):
+            raise AssertionError(f"live fused and staged answers differ at "
+                                 f"k = {ANY_K}, {PRED_NAMES[pred]}")
+        check_live_result(rows, batch, fused, f"live k {ANY_K}")
+        same = hold_live_against_ground_truth(rows, batch, fused.ids, n_gt)
+        ids, dists = ops.masked_topk_multiblock(*anyk_args(fx, batch),
+                                                pred=pred, k=ANY_K)
+        want_i, want_d = want_mb[pred]
+        if not (torch.equal(ids, want_i) and torch.equal(
+                dists.view(torch.int32), want_d.view(torch.int32))):
+            raise AssertionError(f"masked_topk_multiblock differs from "
+                                 f"masked_topk at k = {ANY_K}, "
+                                 f"{PRED_NAMES[pred]}")
+        emit("anyk", pred=PRED_NAMES[pred], q=batch.q, k=ANY_K,
+             sharded_same_as_single="bit-identical",
+             live_fused_s=fused.timings["search_s"],
+             live_staged_s=staged.timings["search_s"],
+             live_fused_same_as_staged="bit-identical", gt_queries=n_gt,
+             gt_identical=same, multiblock_same_as_masked_topk=True,
+             matched=int((fused.ids >= 0).sum()))
 
 
 def profile_phase(name: str, fn) -> None:
@@ -1620,7 +1826,6 @@ def main() -> int:
     t0 = time.perf_counter()
     times.update(time_slice2_kernels(fx, sfx, exact_batches, dev))
     emit("kernels.timing2", seconds=time.perf_counter() - t0)
-    sfx.close()
 
     # slice 3, the live index: the kernels against their plain versions on
     # grids, then (a) the live read path with the launch counts set to 0
@@ -1684,6 +1889,36 @@ def main() -> int:
     times.update(time_live_kernels(live, exact_batches, dev))
     emit("live.kernels.timing", seconds=time.perf_counter() - t0)
 
+    # slice 4, any k: the kernels against their plain versions on grids,
+    # then k = ANY_K through the sharded, live and multi-block entry points
+    # with the launch counts set to 0 just before and read just after
+    t0 = time.perf_counter()
+    grid4 = check_slice4_grids(dev)
+    emit("anyk.kernels.check", cases=grid4, result="bit-identical",
+         seconds=time.perf_counter() - t0)
+    batches_k = anyk_batches(exact_batches)
+    want_k, want_mb = anyk_answers(fx, batches_k)
+    t0 = time.perf_counter()
+    reset_launches()
+    run_anyk(fx, sfx, live, batches_k, want_k, want_mb, GT_QUERIES)
+    launches_anyk = read_launches()
+    emit("anyk.path", seconds=time.perf_counter() - t0,
+         launches=launches_anyk)
+    for name in ("merge_topk", "fused_live", "masked_topk_large",
+                 "masked_topk_blocks"):
+        if launches_anyk[name] == 0:
+            raise AssertionError(f"the any-k phase never launched {name}")
+    sfx.close()
+
+    def large_pass(k):
+        for p, b in exact_batches.items():
+            mk.masked_topk_large(
+                to_device(b.vectors[:DEFAULT_QCHUNK], dev),
+                to_device(b.bitmaps[:DEFAULT_QCHUNK], dev), dd.vectors,
+                dd.norms, dd.bitmaps, pred=p, k=k)
+    profile_phase("masked_topk_large_k1016", lambda: large_pass(1016))
+    profile_phase("masked_topk_large_k200", lambda: large_pass(ANY_K))
+
     t0 = time.perf_counter()
     reset_launches()
     live_summary.update(run_live_compaction(live, ds, exact_batches))
@@ -1713,7 +1948,8 @@ def main() -> int:
              "src/repro/kernels/masked_topk.py:367", launches_mb,
              "one launch per predicate on the whole 256-query exact batch "
              "over the 1M rows, summed; launches from "
-             "ops.masked_topk_multiblock on the three exact batches"),
+             "ops.masked_topk_multiblock on the three exact batches; "
+             "k200_ms: the same at k = 200"),
             ("fused_live", src + "fused_live.cu",
              "src/repro/kernels/masked_topk.py:294", launches_live,
              "one launch per predicate on the live read's inputs for the "
@@ -1729,9 +1965,9 @@ def main() -> int:
              "base overfetch, k = 1,016 over the 1M base rows, summed; "
              "launches from the live read path (fused exact, routed and "
              "queued reads; its reference answers are made before the "
-             "counts are set to 0)")):
+             "counts are set to 0); k200_ms: the same at k = 200")):
         t = times[name]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launch[name],
             "max_abs_err": errs[name], "ms": t["ms"],
@@ -1740,7 +1976,14 @@ def main() -> int:
                          else "bytes"),
             "library_ms": (t["library_ms"] if name == "merge_topk"
                            else None),
-            "work": work})
+            "work": work}
+        if name in ("masked_topk_large", "masked_topk_blocks"):
+            row.update(k200_ms=t["k200_ms"],
+                       k200_bound_ms=t["k200_bound_s"] * 1e3)
+        rows.append(row)
+    emit("kernels.earlier", source="copied from PERF.md, not measured by "
+         "this run", ms={name: sum(t) for name, t in EARLIER_MS.items()},
+         per_predicate_ms=EARLIER_MS)
     emit("done", seconds=time.perf_counter() - t_all)
     fx.close()
     print(smi, flush=True)

@@ -31,9 +31,14 @@ _SIGNATURES = {
     # name: (argtypes, restype); pointers and the stream as c_void_p
     "masked_topk_blocks_launch": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "tile_scan_smem_bytes": ([_I, _I], ctypes.c_longlong),
-    "masked_topk_large_launch": ([_P] * 9 + [_I] * 9 + [_P], _I),
+    "tile_scan_layout": ([_I], _I),
+    "topk_select_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
+    "masked_topk_large_launch": ([_P] * 9 + [_I] * 8 + [_P], _I),
+    "masked_topk_blocks_large_launch": ([_P] * 9 + [_I] * 11 + [_P], _I),
     "fused_live_launch": ([_P] * 4 + [_I] + [_P] * 4 + [_I] * 2 + [_P, _I]
                           + [_P] * 2 + [_I] * 6 + [_P], _I),
+    "fused_live_large_launch": ([_P] * 4 + [_I] + [_P] * 4 + [_I] * 2
+                                + [_P, _I] + [_P] * 4 + [_I] * 6 + [_P], _I),
     "merge_topk_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "selectivity_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),

@@ -1,6 +1,6 @@
 // Shared device helpers for the port's kernels: predicate evaluation on
-// packed uint32 label words, per-thread top-k lists, and argmins over
-// (score, id) pairs within a lane group or a block.
+// packed uint32 label words, the (key, id) order of the top-k lists, and
+// argmins over (score, id) pairs within a lane group or a block.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,22 +30,6 @@ __device__ __forceinline__ float key_float(int key) {
 template <typename K>
 __device__ __forceinline__ bool pair_less(K a, int ia, K b, int ib) {
   return a < b || (a == b && ia < ib);
-}
-
-// Insert (s, id) into the ascending list ls/li of length k, if it comes
-// before the list's last entry in `pair_less` order.
-template <typename K>
-__device__ __forceinline__ void list_insert(K* ls, int* li, int k, K s,
-                                            int id) {
-  if (!pair_less(s, id, ls[k - 1], li[k - 1])) return;
-  int p = k - 1;
-  while (p > 0 && pair_less(s, id, ls[p - 1], li[p - 1])) {
-    ls[p] = ls[p - 1];
-    li[p] = li[p - 1];
-    --p;
-  }
-  ls[p] = s;
-  li[p] = id;
 }
 
 // Argmin in `pair_less` order over WIDTH consecutive lanes (an aligned

@@ -51,6 +51,9 @@
 //     distance >= PAD_SCORE counts as PAD_SCORE; the outputs past the
 //     valid candidates (k may exceed S·K) are (PAD_SCORE, -1). A valid
 //     output keeps the input distance's bits.
+//   * Any k >= 1: the k rounds keep no lists, so nothing bounds k but the
+//     output (a reranking stage's k in the hundreds merges as k = 10 does,
+//     one round a slot).
 
 #include <climits>
 
@@ -181,8 +184,8 @@ extern "C" int merge_topk_launch(const float* dists, const int* ids,
                                  void* stream_ptr) {
   using namespace repro_torch;
   const long long c = (long long)s * kk;
-  if (s < 1 || nq < 1 || kk < 1 || k < 1 || k > 128 ||
-      c >= 0x7fffffffLL - 0xffff)   // int positions
+  if (s < 1 || nq < 1 || kk < 1 || k < 1 ||
+      c >= 0x7fffffffLL - 0xffff)   // int positions; any k (k rounds)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (s <= 32) {

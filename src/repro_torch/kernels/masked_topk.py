@@ -20,9 +20,12 @@ in the slots past the valid candidates; `ops` turns those into −1 /
   masked base candidates, then the delta rows' masked scores, in one
   [Q, k] top-k in that fold order.
 
-`masked_topk_accum` takes any k: up to `MAX_K` through the split
-kernel's per-thread lists, above it through the key/radix-select kernels
-of `csrc/masked_topk.cu`. The other wrappers take k up to `MAX_K`.
+Every wrapper takes any k >= 1, as the reference does. Up to `MAX_K`
+the scanning kernels keep each query's top-k list in shared memory;
+above it `masked_topk`,
+`masked_topk_blocks` and `fused_live` write one sortable key per
+(query, position) and reduce each row's keys with the select of
+`csrc/topk_select.cuh`. The merge keeps no lists and takes any k itself.
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ from repro_torch.ann.topk import order_key
 from repro_torch.kernels import _build
 
 PAD_SCORE = 3.0e38      # sentinel of masked-out candidates (finite, as on TPU)
-MAX_K = 128             # largest k the split kernel keeps per thread
-LARGE_KEYS = 1 << 26    # (query, row) keys a k > MAX_K launch holds (256 MB)
-LARGE_SORT_SMEM = 16384  # survivors the k > MAX_K sort keeps in shared memory
+MAX_K = 128             # largest k the scanning kernels' lists keep
+LARGE_KEYS = 1 << 26    # (query, position) keys a k > MAX_K launch holds
+                        # (256 MB)
 MAX_SPLITS = 1024       # row splits (the kernel's grid.y)
 SPLIT_ROWS = 1024       # rows a split is given, up to MAX_SPLITS splits
 SMEM_LIMIT = 232448     # shared memory a block can use on Hopper (227 KB)
@@ -109,7 +112,7 @@ def masked_topk_blocks_plain(qvecs, qbms, base, norms, bitmaps, *,
             ids.transpose(0, 1).contiguous())
 
 
-def _check(qvecs, qbms, base, norms, bitmaps, pred, k, max_k=MAX_K):
+def _check(qvecs, qbms, base, norms, bitmaps, pred, k):
     for name, t in (("qvecs", qvecs), ("base", base)):
         if t.dtype not in _DTYPES:
             raise TypeError(f"masked_topk takes float32 or bfloat16 {name}; "
@@ -123,9 +126,8 @@ def _check(qvecs, qbms, base, norms, bitmaps, pred, k, max_k=MAX_K):
         if t.dtype != torch.int32:
             raise TypeError(f"masked_topk takes int32 views of the uint32 "
                             f"{name}; got {t.dtype}")
-    if k < 1 or (max_k is not None and k > max_k):
-        bound = "" if max_k is None else f" <= {max_k}"
-        raise ValueError(f"masked_topk supports 1 <= k{bound}; got {k}")
+    if k < 1:
+        raise ValueError(f"masked_topk takes k >= 1; got {k}")
     if pred not in (0, 1, 2):
         raise ValueError(f"pred must be 0, 1 or 2; got {pred}")
     q, d = qvecs.shape
@@ -144,7 +146,34 @@ def splits_for(n: int) -> int:
     return max(1, min(MAX_SPLITS, -(-n // SPLIT_ROWS)))
 
 
-def _scan_device(name, qvecs, qbms, base, norms, bitmaps):
+def _check_smem(name: str, lib, d: int, w: int, k: int) -> None:
+    """Raise if a scanning block at (D, W) needs more shared memory than a
+    block can have: the scan's, and for k <= MAX_K each query's k-entry
+    list; the layout's numbers come from the library."""
+    qg, rows, label_rows, chunk = (lib.tile_scan_layout(i) for i in range(4))
+    lists = qg * k * 8 if k <= MAX_K else 0
+    smem = lib.tile_scan_smem_bytes(d, w) + lists
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{name} keeps {qg} queries and {rows} rows of up to {chunk} "
+            f"dimensions, two tiles of {label_rows} rows of W label words "
+            f"and {lists} bytes of top-k lists in shared memory: D = {d}, "
+            f"W = {w}, k = {k} needs {smem} bytes, more than {SMEM_LIMIT}")
+
+
+def _select_workspace(lib, dev, rows: set, m: int, k: int) -> torch.Tensor:
+    """The select's workspace (`csrc/topk_select.cuh`) for launches of
+    each row count in `rows` over m positions, k kept."""
+    nbytes = max(lib.topk_select_workspace_bytes(r, m, k) for r in rows)
+    return torch.empty(max(nbytes, 1), dtype=torch.uint8, device=dev)
+
+
+def _chunks(q: int, qc: int) -> set:
+    """The row counts of the chunks of q rows, qc at a time."""
+    return {qc, q - (q - 1) // qc * qc}
+
+
+def _scan_device(name, qvecs, qbms, base, norms, bitmaps, k):
     """The device of a scan's inputs, None for the CPU; for CUDA, checks
     what the split kernel takes and returns (device, library)."""
     dev = qvecs.device
@@ -157,14 +186,9 @@ def _scan_device(name, qvecs, qbms, base, norms, bitmaps):
         raise ValueError(f"{name} inputs must share one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} inputs must be contiguous")
-    d = qvecs.shape[1]
-    n, w = bitmaps.shape
+    n = bitmaps.shape[0]
     lib = _build.library()
-    smem = lib.tile_scan_smem_bytes(d, w)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name} keeps 48 rows of D + W words in shared "
-                         f"memory: D = {d}, W = {w} needs {smem} bytes, more "
-                         f"than {SMEM_LIMIT}")
+    _check_smem(name, lib, qvecs.shape[1], bitmaps.shape[1], k)
     if n >= 2 ** 31 - 2 ** 16:
         raise ValueError(f"{name} takes fewer than 2^31 rows; got {n}")
     return dev, lib
@@ -209,7 +233,7 @@ def masked_topk_accum(qvecs, qbms, base, norms, bitmaps, *, pred: int,
     if k > MAX_K:
         return masked_topk_large(*args, pred=pred, k=k)
     _check(*args, pred, k)
-    dev, lib = _scan_device("masked_topk", *args)
+    dev, lib = _scan_device("masked_topk", *args, k)
     if dev is None:
         return masked_topk_plain(*args, pred=pred, k=k)
     q, n = qvecs.shape[0], bitmaps.shape[0]
@@ -240,28 +264,28 @@ def masked_topk_large(qvecs, qbms, base, norms, bitmaps, *, pred: int,
     """Masked exact top-k for any k, through the kernels that keep no
     per-thread lists (`masked_topk_accum` sends k > MAX_K here): per
     query chunk (at most LARGE_KEYS keys at once) the key kernel writes
-    [Qc, N] sortable score keys and the select kernel reduces each
-    query's to its top-k, sorting in shared memory up to LARGE_SORT_SMEM
-    survivors and in a global scratch above. Counted once a call in
+    [Qc, N] sortable score keys and the select of `csrc/topk_select.cuh`
+    reduces each query's to its top-k. Counted once a call in
     `masked_topk_large.launches`. Inputs and output as
     `masked_topk_accum`; CPU tensors run `masked_topk_plain`."""
     pred, k = int(pred), int(k)
     args = (qvecs, qbms, base, norms, bitmaps)
-    _check(*args, pred, k, max_k=None)
-    dev, lib = _scan_device("masked_topk", *args)
+    _check(*args, pred, k)
+    dev, lib = _scan_device("masked_topk", *args, k)
     if dev is None:
         return masked_topk_plain(*args, pred=pred, k=k)
     q, d = qvecs.shape
     n, w = bitmaps.shape
-    dists = torch.full((q, k), PAD_SCORE, dtype=torch.float32, device=dev)
-    ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
     if q == 0 or n == 0:
-        return dists, ids
-    n2 = 1 << (min(k, n) - 1).bit_length()
-    qc = max(1, min(q, LARGE_KEYS // n))
-    keys = torch.empty((qc, n), dtype=torch.int32, device=dev)
-    scratch = (None if n2 <= LARGE_SORT_SMEM else
-               torch.empty((qc, n2), dtype=torch.int64, device=dev))
+        return (torch.full((q, k), PAD_SCORE, dtype=torch.float32,
+                           device=dev),
+                torch.full((q, k), -1, dtype=torch.int32, device=dev))
+    dists = torch.empty((q, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((q, k), dtype=torch.int32, device=dev)
+    stride = -(-n // 4) * 4
+    qc = max(1, min(q, LARGE_KEYS // stride))
+    keys = torch.empty((qc, stride), dtype=torch.int32, device=dev)
+    ws = _select_workspace(lib, dev, _chunks(q, qc), n, k)
     rows = max(1, -(-n // splits_for(n)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -270,9 +294,8 @@ def masked_topk_large(qvecs, qbms, base, norms, bitmaps, *, pred: int,
             code = lib.masked_topk_large_launch(
                 qvecs[s:e].data_ptr(), qbms[s:e].data_ptr(), base.data_ptr(),
                 norms.data_ptr(), bitmaps.data_ptr(), keys.data_ptr(),
-                None if scratch is None else scratch.data_ptr(),
-                dists[s:e].data_ptr(), ids[s:e].data_ptr(), e - s, n, d, w,
-                pred, k, n2, rows, _DTYPES[qvecs.dtype], stream)
+                ws.data_ptr(), dists[s:e].data_ptr(), ids[s:e].data_ptr(),
+                e - s, n, d, w, pred, k, rows, _DTYPES[qvecs.dtype], stream)
             _build.check(code, "masked_topk")
     _build.count_launch(masked_topk_large)
     return dists, ids
@@ -286,10 +309,11 @@ def masked_topk_blocks(qvecs, qbms, base, norms, bitmaps, *, pred: int,
     """Per-block masked top-k: (dists [NB, Q, k] f32, ids [NB, Q, k] i32),
     raw, NB = ceil(N / bn); block b holds rows [b·bn, (b+1)·bn).
 
-    Inputs as `masked_topk_accum`, N >= 1. CUDA tensors launch the split
-    kernel with splits of exactly `bn` rows (counted in
-    `masked_topk_blocks.launches`); CPU tensors run
-    `masked_topk_blocks_plain`."""
+    Inputs as `masked_topk_accum`, N >= 1, any k >= 1. CUDA tensors with
+    k <= MAX_K launch the split kernel with splits of exactly `bn` rows;
+    above it the key kernel and the select over each (query, block)
+    segment (both counted in `masked_topk_blocks.launches`, once a call);
+    CPU tensors run `masked_topk_blocks_plain`."""
     pred, k, bn = int(pred), int(k), int(bn)
     _check(qvecs, qbms, base, norms, bitmaps, pred, k)
     n = bitmaps.shape[0]
@@ -297,15 +321,47 @@ def masked_topk_blocks(qvecs, qbms, base, norms, bitmaps, *, pred: int,
         raise ValueError(f"masked_topk_blocks takes N >= 1 rows in at most "
                          f"{MAX_BLOCKS} blocks; got N = {n}, bn = {bn}")
     args = (qvecs, qbms, base, norms, bitmaps)
-    dev, lib = _scan_device("masked_topk_blocks", *args)
+    dev, lib = _scan_device("masked_topk_blocks", *args, k)
     if dev is None:
         return masked_topk_blocks_plain(*args, pred=pred, k=k, bn=bn)
-    if qvecs.shape[0] == 0:
+    q = qvecs.shape[0]
+    if q == 0:
         empty = torch.empty((-(-n // bn), 0, k), device=dev)
         return empty, empty.to(torch.int32)
-    dists, ids, code = _scan_lists(lib, dev, args, pred, k, bn)
-    _build.check(code, "masked_topk_blocks")
+    if k > MAX_K:
+        dists, ids = _blocks_large(lib, dev, args, pred, k, bn)
+    else:
+        dists, ids, code = _scan_lists(lib, dev, args, pred, k, bn)
+        _build.check(code, "masked_topk_blocks")
     _build.count_launch(masked_topk_blocks)
+    return dists, ids
+
+
+def _blocks_large(lib, dev, args, pred: int, k: int, bn: int):
+    """`masked_topk_blocks` for k > MAX_K on `dev`: per query chunk the
+    key kernel writes [Qc, NB·bn] keys (the ragged last block padded) and
+    the select reduces each (query, block) segment of bn keys."""
+    qvecs, qbms, base, norms, bitmaps = args
+    q, d = qvecs.shape
+    n, w = bitmaps.shape
+    nb = -(-n // bn)
+    stride = nb * bn
+    qc = max(1, min(q, LARGE_KEYS // stride, (2 ** 31 - 1) // nb))
+    keys = torch.empty((qc, stride), dtype=torch.int32, device=dev)
+    ws = _select_workspace(lib, dev, {c * nb for c in _chunks(q, qc)}, bn, k)
+    dists = torch.empty((nb, q, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((nb, q, k), dtype=torch.int32, device=dev)
+    rows = max(1, -(-n // splits_for(n)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s in range(0, q, qc):
+            e = min(q, s + qc)
+            code = lib.masked_topk_blocks_large_launch(
+                qvecs[s:e].data_ptr(), qbms[s:e].data_ptr(), base.data_ptr(),
+                norms.data_ptr(), bitmaps.data_ptr(), keys.data_ptr(),
+                ws.data_ptr(), dists.data_ptr(), ids.data_ptr(), e - s, s, q,
+                n, d, w, pred, k, bn, rows, _DTYPES[qvecs.dtype], stream)
+            _build.check(code, "masked_topk_blocks")
     return dists, ids
 
 
@@ -339,7 +395,8 @@ def merge_topk_plain(dists, ids, *, k: int):
 def merge_topk_accum(dists, ids, *, k: int):
     """Cross-shard top-k merge, raw: dists [S, Q, K] float32, ids
     [S, Q, K] int32 (already global) -> (dists [Q, k], ids [Q, k]) with
-    (PAD_SCORE, −1) at invalid outputs; k may exceed S·K.
+    (PAD_SCORE, −1) at invalid outputs; any k >= 1, which may exceed S·K
+    (the kernel's k argmin rounds keep no lists).
 
     CUDA tensors launch the kernel (counted in
     `merge_topk_accum.launches`); CPU tensors run `merge_topk_plain`.
@@ -352,8 +409,8 @@ def merge_topk_accum(dists, ids, *, k: int):
     if dists.dim() != 3 or dists.shape != ids.shape:
         raise ValueError(f"merge_topk takes [S, Q, K] dists and ids; got "
                          f"{tuple(dists.shape)} / {tuple(ids.shape)}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"merge_topk supports 1 <= k <= {MAX_K}; got {k}")
+    if k < 1:
+        raise ValueError(f"merge_topk takes k >= 1; got {k}")
     s, q, kk = dists.shape
     if s < 1 or kk < 1 or s * kk >= 2 ** 31 - 2 ** 16:
         raise ValueError(f"merge_topk takes 1 <= S, 1 <= K and S·K < 2^31; "
@@ -463,9 +520,11 @@ def fused_live_accum(qvecs, qbms, cand_dists, cand_ids, dvec, dnorms, dbm,
     mirror dvec [ND, D] f32, dnorms [ND] f32, dbm [ND, W] int32, whose row
     r has id base_n + r, tomb_words [TW] int32 views of the packed
     tombstones over base and delta ids (TW >= 1), optional sel [NS] int32
-    mirror rows to scan instead of all of them (−1 pads), 1 <= k <=
-    MAX_K, all on one device. CUDA tensors launch `csrc/fused_live.cu`
-    and fold its lists with the merge kernel (the pair counted once in
+    mirror rows to scan instead of all of them (−1 pads), any k >= 1, all
+    on one device. CUDA tensors with k <= MAX_K launch
+    `csrc/fused_live.cu` and fold its lists with the merge kernel; above
+    it the base candidates' and delta rows' keys go through the select
+    of `csrc/topk_select.cuh` (either way counted once in
     `fused_live_accum.launches`); CPU tensors run `fused_live_plain`.
     Raises TypeError/ValueError on inputs the kernel does not take,
     RuntimeError if a launch fails."""
@@ -481,8 +540,8 @@ def fused_live_accum(qvecs, qbms, cand_dists, cand_ids, dvec, dnorms, dbm,
                             f"candidate distances and int32 ids, bitmaps, "
                             f"tombstone words and sel; got {t.dtype} where "
                             f"{want} is due")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"fused_live supports 1 <= k <= {MAX_K}; got {k}")
+    if k < 1:
+        raise ValueError(f"fused_live takes k >= 1; got {k}")
     if pred not in (0, 1, 2):
         raise ValueError(f"pred must be 0, 1 or 2; got {pred}")
     q, d = qvecs.shape
@@ -515,14 +574,15 @@ def fused_live_accum(qvecs, qbms, cand_dists, cand_ids, dvec, dnorms, dbm,
         raise ValueError(f"fused_live takes fewer than 2^31 ids and "
                          f"candidates; got base_n {base_n}, ND {nd}, KB {kb}")
     lib = _build.library()
-    smem = lib.tile_scan_smem_bytes(d, w)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_live keeps 48 rows of D + W words in shared "
-                         f"memory: D = {d}, W = {w} needs {smem} bytes, "
-                         f"more than {SMEM_LIMIT}")
+    _check_smem("fused_live", lib, d, w, k)
     dists = torch.empty((q, k), dtype=torch.float32, device=dev)
     ids = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
+        return dists, ids
+    if k > MAX_K:
+        _fused_live_large(lib, dev, tensors[:8], sel, base_n, pred, k,
+                          dists, ids)
+        _build.count_launch(fused_live_accum)
         return dists, ids
     splits = 0 if ns == 0 else splits_for(ns)
     rows = max(1, -(-ns // max(splits, 1)))
@@ -548,3 +608,39 @@ def fused_live_accum(qvecs, qbms, cand_dists, cand_ids, dvec, dnorms, dbm,
 
 
 fused_live_accum.launches = 0
+
+
+def _fused_live_large(lib, dev, tensors, sel, base_n: int, pred: int,
+                      k: int, dists, ids) -> None:
+    """`fused_live_accum` for k > MAX_K on `dev`, into dists/ids [Q, k]:
+    per query chunk, keys over the KB base slots and the NS scanned delta
+    rows, then the select (`csrc/fused_live.cu`'s
+    `fused_live_large_launch`)."""
+    qvecs, qbms, cand_dists, cand_ids, dvec, dnorms, dbm, tomb_words = tensors
+    q, d = qvecs.shape
+    w = dbm.shape[1]
+    kb = cand_ids.shape[1]
+    ns = dvec.shape[0] if sel is None else sel.shape[0]
+    m = kb + ns
+    if m == 0:
+        dists.fill_(PAD_SCORE)
+        ids.fill_(-1)
+        return
+    stride = -(-m // 4) * 4
+    qc = max(1, min(q, LARGE_KEYS // stride, 65535))
+    keys = torch.empty((qc, stride), dtype=torch.int32, device=dev)
+    ws = _select_workspace(lib, dev, _chunks(q, qc), m, k)
+    rows = max(1, -(-ns // splits_for(ns))) if ns else 1
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s in range(0, q, qc):
+            e = min(q, s + qc)
+            code = lib.fused_live_large_launch(
+                qvecs[s:e].data_ptr(), qbms[s:e].data_ptr(),
+                cand_dists[s:e].data_ptr(), cand_ids[s:e].data_ptr(), kb,
+                dvec.data_ptr(), dnorms.data_ptr(), dbm.data_ptr(),
+                None if sel is None else sel.data_ptr(), ns, base_n,
+                tomb_words.data_ptr(), tomb_words.shape[0], keys.data_ptr(),
+                ws.data_ptr(), dists[s:e].data_ptr(), ids[s:e].data_ptr(),
+                e - s, d, w, pred, k, rows, stream)
+            _build.check(code, "fused_live")

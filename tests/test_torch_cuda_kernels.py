@@ -137,9 +137,38 @@ def test_masked_topk_kernel_odd_and_wide_dims(cuda, d):
 
 
 def test_masked_topk_kernel_refuses_too_wide_rows(cuda):
-    args = _on(cuda, _tie_case(np.random.default_rng(3), 2, 64, d=1300))
+    """Rows whose label words do not fit the scan's two label tiles in
+    shared memory are refused (any D fits: dimensions are staged in
+    chunks, so D = 1300 is taken and equals the plain version)."""
+    args = _on(cuda, _tie_case(np.random.default_rng(3), 2, 64, w=200))
     with pytest.raises(ValueError, match="shared memory"):
         mk.masked_topk_accum(*args, pred=0, k=5)
+    args = _on(cuda, _tie_case(np.random.default_rng(3), 2, 64, d=1300))
+    gd, gi = mk.masked_topk_accum(*args, pred=2, k=5)
+    pd, pi = mk.masked_topk_plain(*args, pred=2, k=5)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, pi) and torch.equal(gd, pd)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q,n,d,w", [(33, 3001, 5, 1), (45, 5000, 192, 8),
+                                     (17, 2500, 192, 1), (70, 4099, 37, 3),
+                                     (1, 300, 1300, 2)])
+def test_tile_scan_shapes_bitwise(cuda, dtype, q, n, d, w):
+    """The register-blocked scan at odd and wide D (dimension chunks),
+    one and eight label words, query counts that are not a multiple of
+    the block's 32, bf16 staged to fp32: bit-identical to the plain
+    version on the tie grid, through the split and the key kernels."""
+    args = _on(cuda, _tie_case(np.random.default_rng(q + d + w), q, n, d=d,
+                               w=w))
+    if dtype == "bfloat16":
+        args = (args[0].bfloat16(), args[1], args[2].bfloat16(), *args[3:])
+    for pred in (0, 1, 2):
+        for k in (10, 200):
+            gd, gi = mk.masked_topk_accum(*args, pred=pred, k=k)
+            pd, pi = mk.masked_topk_plain(*args, pred=pred, k=k)
+            torch.cuda.synchronize()
+            assert torch.equal(gi, pi) and torch.equal(gd, pd), (pred, k)
 
 
 def test_masked_topk_kernel_counts_launches_and_checks(cuda):
@@ -224,7 +253,10 @@ def test_masked_topk_kernel_bf16_random(cuda):
 @pytest.mark.parametrize("q,n,bn,k", [(8, 512, 128, 10), (16, 256, 64, 41),
                                       (8, 64, 16, 20), (5, 1001, 256, 10),
                                       (37, 70001, 1024, 10),
-                                      (3, 20011, 1024, 128)])
+                                      (3, 20011, 1024, 128),
+                                      (7, 5000, 1000, 200),
+                                      (3, 20000, 8192, 300),
+                                      (2, 700, 64, 129)])
 def test_masked_topk_blocks_kernel_bitwise_on_tie_grid(cuda, pred, q, n, bn,
                                                        k):
     args = _on(cuda, _tie_case(np.random.default_rng(q * 3 + n + k), q, n))
@@ -262,7 +294,8 @@ def _merge_grid(rng, s, q, kk):
                                       (4, 256, 10, 10), (977, 64, 10, 10),
                                       (977, 256, 10, 10), (40, 7, 30, 128),
                                       (1500, 3, 4, 10), (2, 300, 64, 128),
-                                      (3, 9, 4, 10)])
+                                      (3, 9, 4, 10), (3, 20, 100, 200),
+                                      (40, 7, 30, 300), (977, 5, 10, 1000)])
 def test_merge_topk_kernel_bitwise(cuda, s, q, kk, k):
     rng = np.random.default_rng(s * 31 + q + kk)
     d, ids = _merge_grid(rng, s, q, kk)
@@ -320,7 +353,8 @@ def test_merge_topk_kernel_signed_zero_order(cuda):
 @pytest.mark.parametrize("pred", [0, 1, 2])
 @pytest.mark.parametrize("q,n,k", [(3, 2000, 129), (5, 70001, 1016),
                                    (2, 700, 1016), (17, 5000, 200),
-                                   (2, 40000, 20000)])
+                                   (2, 40000, 20000), (3, 100003, 200),
+                                   (2, 5000, 6000), (33, 4097, 129)])
 def test_masked_topk_large_kernel_bitwise_on_tie_grid(cuda, pred, q, n, k):
     """The key/select kernels for k > MAX_K against the plain version on
     the tie grid: ties to the lowest row, fill past the matches (k > N
@@ -335,10 +369,32 @@ def test_masked_topk_large_kernel_bitwise_on_tie_grid(cuda, pred, q, n, k):
     assert torch.equal(gd, pd)
 
 
+@pytest.mark.parametrize("k", [129, 200, 1016, 20000])
+def test_select_kernel_ties_across_blocks(cuda, k):
+    """The multi-block select where every passing key is equal (all rows
+    one vector): the k lowest passing rows, ties straddling the blocks'
+    position ranges; a query that passes no row (all kNoKey); bit-
+    identical to the plain version."""
+    rng = np.random.default_rng(k)
+    q, n = 4, 100_003
+    qv, qb, base, norms, bm = _tie_case(rng, q, n)
+    base[:] = base[0]
+    norms[:] = norms[0]
+    bm[rng.random(n) < 0.3] = 0
+    qb[1] = 0x7fff_ffff                # AND/EQUALITY pass no row
+    args = _on(cuda, (qv, qb, base, norms, bm))
+    for pred in (0, 1, 2):
+        gd, gi = mk.masked_topk_large(*args, pred=pred, k=k)
+        pd, pi = mk.masked_topk_plain(*args, pred=pred, k=k)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, pi) and torch.equal(gd, pd), pred
+
+
 def test_masked_topk_large_kernel_scores_equal_split_kernel(cuda):
     """Random fp32: the k > MAX_K kernels score with the split kernel's
     FMA chain, so the first 128 of a k = 300 answer are the split
-    kernel's k = 128 answer bit for bit."""
+    kernel's k = 128 answer bit for bit, and the per-block output at
+    k = 200 holds the same scores."""
     rng = np.random.default_rng(3)
     q, n, d, w = 20, 30011, 192, 7
     args = (torch.from_numpy(rng.normal(size=(q, d)).astype(np.float32)),
@@ -355,6 +411,9 @@ def test_masked_topk_large_kernel_scores_equal_split_kernel(cuda):
         torch.cuda.synchronize()
         assert torch.equal(gi[:, :mk.MAX_K], si)
         assert torch.equal(gd[:, :mk.MAX_K], sd)
+        bi, bd = ops.masked_topk_multiblock(*args, pred=pred, k=200)
+        wi, wd = ops.masked_topk(*args, pred=pred, k=200)
+        assert torch.equal(bi, wi) and torch.equal(bd, wd)
 
 
 def _live_case(rng, q, kb, nd, base_n, ns=None, d=24, w=2):
@@ -386,7 +445,9 @@ def _live_case(rng, q, kb, nd, base_n, ns=None, d=24, w=2):
     (5, 1, 200, 10, None), (4, 300, 150, 10, None), (7, 3, 64, 41, None),
     (3, 8, 5, 30, None), (6, 20, 0, 10, None), (37, 1016, 5000, 10, None),
     (5, 40, 300, 10, 90), (2, 1, 100, 20, 40), (20, 1016, 70000, 10, 30000),
-    (3, 50, 2000, 128, 700)])
+    (3, 50, 2000, 128, 700), (5, 300, 5000, 200, None),
+    (20, 1016, 70000, 200, 30000), (7, 3, 64, 129, None),
+    (6, 20, 0, 300, None), (33, 0, 9000, 1500, 6000)])
 def test_fused_live_kernel_bitwise_on_grid(cuda, pred, q, kb, nd, k, ns):
     """Both variants (all delta rows; the rows `sel` picks) against the
     plain version on the grid: ids and distance bits, −0.0 included."""
@@ -422,9 +483,37 @@ def test_fused_live_kernel_delta_scores_equal_masked_topk(cuda):
     cand_i = torch.full((q, 1), -1, dtype=torch.int32, device=cuda)
     words = torch.zeros(-(-(nd + 10) // 32), dtype=torch.int32, device=cuda)
     for pred in (0, 1, 2):
-        fd, fi = mk.fused_live_accum(qv, qb, cand_d, cand_i, dv, dn, db,
-                                     words, base_n=10, pred=pred, k=10)
-        md, mi = mk.masked_topk_accum(qv, qb, dv, dn, db, pred=pred, k=10)
+        for k in (10, 200):
+            fd, fi = mk.fused_live_accum(qv, qb, cand_d, cand_i, dv, dn, db,
+                                         words, base_n=10, pred=pred, k=k)
+            md, mi = mk.masked_topk_accum(qv, qb, dv, dn, db, pred=pred,
+                                          k=k)
+            torch.cuda.synchronize()
+            assert torch.equal(fi, torch.where(mi >= 0, mi + 10, mi))
+            assert torch.equal(fd, md)
+
+
+def test_fused_live_kernel_signed_zero_base_candidates(cuda):
+    """k > MAX_K: a caller's −0.0 base candidate ranks before +0.0 (the
+    IEEE total order) and keeps its sign bit, as in the plain version."""
+    q, kb = 3, 300
+    cand_d = torch.full((q, kb), 5.0, device=cuda)
+    cand_d[:, 10] = 0.0
+    cand_d[:, 20] = -0.0
+    cand_i = torch.arange(kb, dtype=torch.int32, device=cuda).repeat(q, 1)
+    qv = torch.zeros((q, 8), device=cuda)
+    qb = torch.zeros((q, 1), dtype=torch.int32, device=cuda)
+    dv = torch.ones((4, 8), device=cuda)
+    dn = torch.full((4,), 8.0, device=cuda)
+    db = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+    words = torch.zeros(16, dtype=torch.int32, device=cuda)
+    for k in (10, 200):
+        gd, gi = mk.fused_live_accum(qv, qb, cand_d, cand_i, dv, dn, db,
+                                     words, base_n=kb, pred=1, k=k)
+        pd, pi = mk.fused_live_plain(qv, qb, cand_d, cand_i, dv, dn, db,
+                                     words, base_n=kb, pred=1, k=k)
         torch.cuda.synchronize()
-        assert torch.equal(fi, torch.where(mi >= 0, mi + 10, mi))
-        assert torch.equal(fd, md)
+        assert torch.equal(gi, pi)
+        assert torch.equal(gd.view(torch.int32), pd.view(torch.int32))
+        assert gi[:, 0].tolist() == [20] * q and gi[:, 1].tolist() == [10] * q
+        assert torch.signbit(gd[:, 0]).all() and not torch.signbit(gd[:, 1]).any()

@@ -362,14 +362,20 @@ def test_masked_topk_multiblock_matches_reference(pred, q, n, bn, k):
 
 
 def test_masked_topk_blocks_rejects():
-    args = _torch(_tie_case(np.random.default_rng(2), 4, 64))
+    case = _tie_case(np.random.default_rng(2), 4, 64)
+    args = _torch(case)
     with pytest.raises(ValueError, match="blocks"):
         mk.masked_topk_blocks(*args, pred=1, k=5, bn=0)
     with pytest.raises(ValueError, match="blocks"):
         mk.masked_topk_blocks(*args[:2], args[2][:0], args[3][:0],
                               args[4][:0], pred=1, k=5)
-    with pytest.raises(ValueError, match=str(mk.MAX_K)):
-        mk.masked_topk_blocks(*args, pred=1, k=mk.MAX_K + 1)
+    # k past MAX_K is taken and answers as the reference does (k > bn too)
+    k = mk.MAX_K + 1
+    d, i = mk.masked_topk_blocks(*args, pred=1, k=k, bn=16)
+    assert d.shape == i.shape == (4, 4, k)
+    _assert_bitwise(*tops.masked_topk_multiblock(*args, pred=1, k=k, bn=16),
+                    *jops.masked_topk_multiblock(*_jax(case), pred=1, k=k,
+                                                 bn=16))
 
 
 # ---------------------------------------------------------------------------
@@ -495,8 +501,10 @@ def test_merge_topk_rejects():
         mk.merge_topk_accum(d.double(), i, k=2)
     with pytest.raises(ValueError, match=r"\[S, Q, K\]"):
         mk.merge_topk_accum(d[0], i[0], k=2)
-    with pytest.raises(ValueError, match=str(mk.MAX_K)):
-        mk.merge_topk_accum(d, i, k=mk.MAX_K + 1)
+    # k past MAX_K is taken and answers as the reference does
+    ids, dd = _merge_case(np.random.default_rng(7), 2, 3, 4)
+    gi, gd = _assert_merge_alike(ids, dd, k=mk.MAX_K + 1)
+    assert gi.shape == (3, mk.MAX_K + 1) and (gi[:, 8:] == -1).all()
 
 
 # ---------------------------------------------------------------------------
@@ -656,8 +664,10 @@ def test_fused_live_rejects():
             torch.from_numpy(cd), torch.from_numpy(ci),
             torch.from_numpy(dvec), torch.from_numpy(dn),
             tlb.bitmap_tensor(dbm, "cpu"), tlb.bitmap_tensor(words, "cpu"))
-    with pytest.raises(ValueError, match=str(mk.MAX_K)):
-        mk.fused_live_accum(*args, base_n=50, pred=0, k=mk.MAX_K + 1)
+    # k past MAX_K is taken and answers as the reference does
+    (ids, dists), want = _live_both(case, 50, 0, mk.MAX_K + 1)
+    assert ids.shape == (2, mk.MAX_K + 1)
+    _assert_bitwise(ids, dists, *want)
     with pytest.raises(ValueError, match="pred"):
         mk.fused_live_accum(*args, base_n=50, pred=3, k=5)
     with pytest.raises(TypeError, match="float32"):
