@@ -14,16 +14,26 @@ not 0):
 4. kernels — each kernel against its plain PyTorch version on the card:
              bit-identical on an integer grid with forced ties, within the
              stated fp32 summation-order tolerance on random floats at the
-             exact-search path's shapes, exact for selectivity; then timed
-             (CUDA events, warm, L2 flushed) on the path's own inputs.
+             exact-search path's shapes, exact for selectivity (word widths
+             1, 7, 13, 16, 32 and 63, the dataset's 1M rows among them);
+             the fvamana graph built on the card against the numpy build
+             on integer-grid sets, bit-identical; then timed (CUDA events,
+             warm, L2 flushed) on the path's own inputs.
 5. path    — the port's main path through its entry points: (a) exact
              search `fx.search(batch, "prefilter")` for each predicate,
-             held against numpy ground truth; (b) the offline table-B rows
-             of `postfilter` and `ivf_gamma` via `bench.run_method`; (c)
-             routed serving, `RouterService(fx, router, t=0.9).search` and
-             `search_chunked`, with the router artifact in
-             `src/repro_torch/assets/router_ivf/`; (d) the kernels' launch
-             counts, set to 0 just before (a) and read just after (c).
+             held against numpy ground truth; (b) the offline stage: every
+             build of the five router candidates (labelnav, postfilter,
+             sieve, ivf_gamma, fvamana; the fvamana graph built on the
+             card), one line each with its seconds and peak device memory,
+             then their table-B rows via `bench.run_method`; (c) routed
+             serving, `RouterService(fx, router, t=0.9).search` and
+             `search_chunked`, with the five-method router artifact in
+             `src/repro_torch/assets/router_all/`: the decisions and
+             recall@10 of each predicate; (d) the kernels' launch counts,
+             set to 0 just before (a) and read just after (c). The
+             sharded path and the queue route with the same router; the
+             live phase with `src/repro_torch/assets/router_ivf/`
+             (postfilter and ivf_gamma) and the same table rows.
 6. profile — one pass of the exact and the routed path under
              torch.profiler; then each kernel timed on the path's inputs.
 7. slice 2 — the sharded path's kernels against their plain versions
@@ -106,7 +116,9 @@ from repro_torch.ann.index import FilteredIndex, QueryBatch  # noqa: E402
 from repro_torch.ann.live import LiveFilteredIndex  # noqa: E402
 from repro_torch.ann.predicates import (PREDICATES, Predicate,  # noqa: E402
                                         eval_predicate_np)
-from repro_torch.ann.registry import get_method  # noqa: E402
+from repro_torch.ann import graph  # noqa: E402
+from repro_torch.ann.registry import (candidate_methods,  # noqa: E402
+                                      get_method)
 from repro_torch.ann.service import (AsyncBatchQueue,  # noqa: E402
                                      RouterService, ShardedRouterService)
 from repro_torch.ann.sharded import (ShardedFilteredIndex,  # noqa: E402
@@ -156,17 +168,25 @@ PRED_NAMES = ("EQUALITY", "AND", "OR")
 # Slice 4: the any-k phase's k, a reranking stage's candidate count.
 ANY_K = 200
 
-# Each kernel's time per predicate (E, A, O) before the select and the
-# tile scan were redesigned, copied from PERF.md's kernel table (this
-# script's earlier runs on an NVIDIA H100 80GB HBM3 at 700 W). Not
-# measured by this run: printed on a line of their own, labelled so, and
-# kept out of the kernels' line.
-EARLIER_MS = {"masked_topk": (0.563, 1.944, 2.981),
-              "selectivity": (0.485, 0.618, 0.582),
-              "merge_topk": (0.0106, 0.0106, 0.0108),
-              "masked_topk_blocks": (1.674, 6.344, 10.385),
-              "fused_live": (0.390, 0.798, 1.041),
-              "masked_topk_large": (2.820, 4.520, 5.260)}
+# Each kernel's time per predicate (E, A, O) before `selectivity` was
+# redesigned, copied from PERF.md's kernel table (this script's run 4 of
+# the any-k slice on an NVIDIA H100 80GB HBM3 at 700 W). Not measured by
+# this run: printed on a line of their own, labelled so, and kept out of
+# the kernels' line.
+EARLIER_MS = {"masked_topk": (0.395, 1.512, 1.721),
+              "selectivity": (0.489, 0.621, 0.582),
+              "merge_topk": (0.0106, 0.0106, 0.0107),
+              "masked_topk_blocks": (1.228, 5.251, 6.455),
+              "fused_live": (0.242, 0.483, 0.521),
+              "masked_topk_large": (0.644, 1.641, 1.801)}
+
+# The router artifacts: all five candidates for the main path, the IVF
+# pair for the sharded, queue and live phases.
+ASSETS = os.path.join(ROOT, "src", "repro_torch", "assets")
+
+# Word widths of the selectivity checks: the training specs' 1 (universe
+# 14-30), 7, 13, 16, 32 and 63 (universe 2,000).
+SELECTIVITY_WIDTHS = (1, 7, 13, 16, 32, 63)
 
 # Every kernel wrapper and its launch counter, by the name the kernels'
 # JSON line gives it.
@@ -386,22 +406,63 @@ def check_kernels(dev, n: int, d: int, w: int) -> dict:
         topk_err = max(topk_err, err)
     del vecs, args
 
+    # selectivity at every width class of the kernel (W <= 16 in
+    # registers, the chunked path above), query counts that are not a
+    # multiple of its block's, ragged row counts, and the dataset's own
+    # row count at its width
     sel_cases = 0
-    for qq, nn in [(1, 50), (7, 131), (40, 100003), (256, n)]:
-        for pred in range(3):
-            qbt, bmt = on_card(dev, *pattern_bitmaps(rng, qq, nn, w, pred))
-            got = bf.selectivity_count(qbt, bmt, pred=pred)
-            want = bf.selectivity_plain(qbt, bmt, pred=pred)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"selectivity differs from its plain version: pred "
-                    f"{pred}, q {qq}, n {nn}")
-            sel_cases += 1
+    for ww in sorted(set(SELECTIVITY_WIDTHS) | {w}):
+        shapes = [(1, 50), (7, 4099), (255, 100003), (300, 70001)]
+        if ww == w:
+            shapes.append((256, n))
+        for qq, nn in shapes:
+            for pred in range(3):
+                qbt, bmt = on_card(dev, *pattern_bitmaps(rng, qq, nn, ww,
+                                                         pred))
+                got = bf.selectivity_count(qbt, bmt, pred=pred)
+                want = bf.selectivity_plain(qbt, bmt, pred=pred)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"selectivity differs from its plain version: "
+                        f"pred {pred}, q {qq}, n {nn}, w {ww}")
+                sel_cases += 1
     emit("kernels.check", masked_topk_tie_grid_cases=tie_cases,
          masked_topk_tie_grid="bit-identical", masked_topk_random_max_abs_err=
-         topk_err, selectivity_cases=sel_cases, selectivity="exact")
+         topk_err, selectivity_cases=sel_cases, selectivity="exact",
+         selectivity_widths=sorted(set(SELECTIVITY_WIDTHS) | {w}))
     return {"masked_topk": topk_err, "selectivity": 0.0}
+
+
+def grid_labels(rng, n: int, d: int, universe: int):
+    """Integer-grid vectors (multiples of 1/4, an eighth of the rows
+    duplicated) with 1-3 labels a row: every distance of the graph build
+    is exact in fp32 in any summation order."""
+    v = (rng.integers(-6, 7, (n, d)) / 4.0).astype(np.float32)
+    v[n // 2: n // 2 + n // 8] = v[: n // 8]
+    bm = np.zeros((n, (universe + 31) // 32), dtype=np.uint32)
+    for i in range(n):
+        for lab in rng.choice(universe, rng.integers(1, 4), replace=False):
+            bm[i, lab >> 5] |= np.uint32(1) << np.uint32(lab & 31)
+    return v, bm
+
+
+def check_graph_build(dev) -> int:
+    """The fvamana graph built on the card (`graph.build_graph_torch`)
+    against the numpy build on integer-grid sets: the same neighbours,
+    medoid and label entries. Returns the number of sets."""
+    rng = np.random.default_rng(5)
+    sets = [(5000, 16, 40, 16), (20_000, 48, 64, 32)]
+    for n, d, u, r in sets:
+        v, bm = grid_labels(rng, n, d, u)
+        host = graph.build_graph(v, bm, u, r=r, seed=17)
+        card = graph.build_graph_torch(v, bm, u, device=dev, r=r, seed=17)
+        if not (np.array_equal(card.neighbors, host.neighbors)
+                and card.medoid == host.medoid
+                and np.array_equal(card.label_entry, host.label_entry)):
+            raise AssertionError(f"the card's graph build differs from the "
+                                 f"numpy build: n {n}, d {d}, r {r}")
+    return len(sets)
 
 
 def merge_grid(rng, s: int, q: int, kk: int):
@@ -561,6 +622,22 @@ def time_kernels(fx, batches: dict, dev) -> dict:
              selectivity_plain_ms=spms, selectivity_bound_ms=max(sbound) * 1e3,
              selectivity_bound_ops_ms=sbound[0] * 1e3,
              selectivity_bound_bytes_ms=sbound[1] * 1e3)
+
+    # selectivity at the other width classes, 256 queries over as many
+    # rows as the dataset's (random label patterns): W = 1 and 13 in
+    # registers, W = 63 chunked
+    rng = np.random.default_rng(2)
+    widths = out["selectivity"]["widths"] = {}
+    for ww in (1, 13, 63):
+        per = widths[ww] = {"ms": [], "bound_ms": max(
+            selectivity_bound(QUERIES, n, ww)) * 1e3}
+        for pred in range(3):
+            qbt, bmt = on_card(dev, *pattern_bitmaps(rng, QUERIES, n, ww,
+                                                     pred))
+            per["ms"].append(time_ms(lambda: bf.selectivity_count(
+                qbt, bmt, pred=pred), 20, flush))
+            del qbt, bmt
+    emit("kernels.time_selectivity_widths", q=QUERIES, n=n, widths=widths)
     del flush
     return out
 
@@ -788,12 +865,36 @@ def hold_against_ground_truth(ds, batch, ids, n_gt: int) -> int:
     return same
 
 
+def build_indexes(fx, names) -> float:
+    """Every build setting of the methods `names` on the handle `fx`, one
+    line each with its seconds and its peak device memory (the fvamana
+    graph builds on the card of a CUDA handle). Returns the largest
+    peak in MB."""
+    peak = 0.0
+    for name in names:
+        method = get_method(name)
+        for build in dict.fromkeys(s.build for s in method.param_settings()):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fx.get_index(method, build)
+            torch.cuda.synchronize()
+            mb = torch.cuda.max_memory_allocated() / 1e6
+            peak = max(peak, mb)
+            emit("path.build", method=name, build=dict(build),
+                 seconds=time.perf_counter() - t0, peak_device_mb=mb,
+                 on=("card" if method.builds_on_device
+                     and fx.torch_device.type == "cuda" else "host"))
+    return peak
+
+
 def run_path(fx, router_dir: str, nq: int, n_gt: int, seed: int = 11):
     """The main path on the handle `fx`. Returns (the exact-search query
     sets with their ground truth, the routed batches, the service, a
-    summary)."""
+    summary, the table-B rows)."""
     ds = fx.ds
     summary = {}
+    names = list(candidate_methods())
 
     # (a) exact search, held against numpy ground truth
     t0 = time.perf_counter()
@@ -811,10 +912,15 @@ def run_path(fx, router_dir: str, nq: int, n_gt: int, seed: int = 11):
              gt_queries=n_gt, gt_identical=same)
     summary["exact_s"] = time.perf_counter() - t0
 
-    # (b) the offline stage: table-B rows for this deployment dataset
+    # (b) the offline stage: the candidates' indexes, then table-B rows
+    #     for this deployment dataset
+    t0 = time.perf_counter()
+    build_peak = build_indexes(fx, names)
+    summary["build_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rows = []
-    for name in ("postfilter", "ivf_gamma"):
+    for name in names:
         method = get_method(name)
         for setting in method.param_settings():
             for pred in PREDICATES:
@@ -834,7 +940,7 @@ def run_path(fx, router_dir: str, nq: int, n_gt: int, seed: int = 11):
     t1 = time.perf_counter()
     F.dataset_features(ds, fx=fx)       # once per handle, cached on it
     emit("path.dataset_features", seconds=time.perf_counter() - t1)
-    recalls, routed = {}, {}
+    recalls, routed, chosen = {}, {}, {}
     for pred in PREDICATES:
         qs = make_queries(ds, pred, nq, seed=seed + 1,
                           with_ground_truth=False)
@@ -847,6 +953,7 @@ def run_path(fx, router_dir: str, nq: int, n_gt: int, seed: int = 11):
         hist = {}
         for m, ps in res.decisions:
             hist[f"{m}/{ps}"] = hist.get(f"{m}/{ps}", 0) + 1
+            chosen[m] = chosen.get(m, 0) + 1
         emit("path.routed", pred=pred.name, q=batch.q, recall_at_10=rec,
              decisions=hist, route_s=res.timings["route_s"],
              search_s=res.timings["search_s"])
@@ -862,7 +969,21 @@ def run_path(fx, router_dir: str, nq: int, n_gt: int, seed: int = 11):
                  same_as_search=True)
     summary["routed_s"] = time.perf_counter() - t0
     summary["recall_at_10"] = recalls
-    return exact, routed, svc, summary
+    summary["decisions"] = chosen
+    summary["peak_device_mb"] = max(
+        build_peak, torch.cuda.max_memory_allocated() / 1e6)
+    return exact, routed, svc, summary, rows
+
+
+def ivf_service(fx, rows) -> RouterService:
+    """`RouterService(fx, router, t=0.9)` over the IVF pair's artifact
+    (`router_ivf`), with the main path's table-B rows of its methods."""
+    router = MLRouter.load(os.path.join(ASSETS, "router_ivf"))
+    for r in rows:
+        if r.method in router.methods:
+            router.table.add(fx.ds.name, r.pred, r.method, r.ps_id,
+                             r.mean_recall, r.qps)
+    return RouterService(fx, router, t=0.9)
 
 
 def reset_launches() -> None:
@@ -921,7 +1042,7 @@ def run_sharded(sfx, ds, svc, exact: dict, routed: dict, want: dict) -> dict:
     # IVF index for each candidate method, the full-dataset feature
     # tensors, the dataset-level features
     t1 = time.perf_counter()
-    for name in ssvc.methods:
+    for name in svc.router.methods:
         method = ssvc.methods[name]
         for setting in method.param_settings():
             for shard in sfx.shards:
@@ -1726,17 +1847,20 @@ def main() -> int:
     t0 = time.perf_counter()
     errs = check_kernels(dev, ds.n, ds.dim, int(ds.bitmaps.shape[1]))
     emit("kernels", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    emit("graph.check", sets=check_graph_build(dev),
+         card_build="bit-identical to the numpy build",
+         seconds=time.perf_counter() - t0)
 
     # (a)-(d): the main path, with every launch count set to 0 just before
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    exact, routed, svc, summary = run_path(
-        fx, os.path.join(ROOT, "src", "repro_torch", "assets", "router_ivf"),
-        QUERIES, GT_QUERIES)
+    exact, routed, svc, summary, rows = run_path(
+        fx, os.path.join(ASSETS, "router_all"), QUERIES, GT_QUERIES)
     launches = read_launches()
     emit("path", seconds=time.perf_counter() - t0, launches=launches,
-         peak_device_mb=torch.cuda.max_memory_allocated() / 1e6, **summary)
+         **summary)
     for name in ("masked_topk", "selectivity"):
         if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
@@ -1750,6 +1874,8 @@ def main() -> int:
                                     for b in exact_batches.values()])
     profile_phase("routed", lambda: [svc.search(b)
                                      for b in routed.values()])
+    # the live phase routes between the IVF pair (ROADMAP, queue 1)
+    svc_ivf = ivf_service(fx, rows)
 
     t0 = time.perf_counter()
     times = time_kernels(fx, exact_batches, dev)
@@ -1841,7 +1967,7 @@ def main() -> int:
                                   delta_prune_min_rows=LIVE_UPSERTS + 1)
     for h in (live, live_full):
         h.device                              # upload the bases
-    live_svc = RouterService(live, svc.router, t=0.9)
+    live_svc = RouterService(live, svc_ivf.router, t=0.9)
     want_live = live_answers(live, live_full, ds, exact_batches, routed,
                              live_svc)
     live_full.close()
@@ -1937,7 +2063,9 @@ def main() -> int:
             ("selectivity", src + "selectivity.cu",
              "src/repro/kernels/bitmap_filter.py:36", launches,
              "one launch per predicate on a whole 256-query batch over the "
-             "1M rows, as the routing features give it, summed"),
+             "1M rows (W = 7), as the routing features give it, summed; "
+             "widths: 256 random-pattern queries over 1M rows at W = 1, "
+             "13 and 63, per predicate"),
             ("merge_topk", src + "merge_topk.cu",
              "src/repro/kernels/masked_topk.py:191", launches_sharded,
              "one launch per predicate on the [4, 256, 10] shard candidates "
@@ -1980,6 +2108,8 @@ def main() -> int:
         if name in ("masked_topk_large", "masked_topk_blocks"):
             row.update(k200_ms=t["k200_ms"],
                        k200_bound_ms=t["k200_bound_s"] * 1e3)
+        if name == "selectivity":
+            row["widths"] = t["widths"]
         rows.append(row)
     emit("kernels.earlier", source="copied from PERF.md, not measured by "
          "this run", ms={name: sum(t) for name, t in EARLIER_MS.items()},

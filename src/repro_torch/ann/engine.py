@@ -2,8 +2,8 @@
 
 * `DeviceData` — per-dataset device-resident tensors (vectors, norms,
   bitmaps, group tables), owned by `repro_torch.ann.index.FilteredIndex`.
-* a word-looped candidate predicate mask that avoids materialising
-  `[Q, C, W]` temporaries.
+* word-looped predicate masks, shared [Q, N] and per-candidate [Q, C],
+  that avoid materialising `[Q, N, W]` / `[Q, C, W]` temporaries.
 * query chunking: every method runs on fixed-size query chunks, with
   host-side padding of the tail chunk, as the JAX package does.
 * per-call stage timings, thread-local, that the sharded handle reports
@@ -75,6 +75,11 @@ class DeviceData:
 # ---------------------------------------------------------------------------
 # predicate mask (int32 bitmap views)
 # ---------------------------------------------------------------------------
+
+def mask_shared(base_bm: torch.Tensor, q_bm: torch.Tensor, pred) -> torch.Tensor:
+    """base [N, W] × query [Q, W] -> bool [Q, N], word-looped (no 3-D temp)."""
+    return eval_predicate(base_bm[None, :, :], q_bm[:, None, :], pred)
+
 
 def mask_cand(cand_bm: torch.Tensor, q_bm: torch.Tensor, pred) -> torch.Tensor:
     """candidates [Q, C, W] × query [Q, W] -> bool [Q, C]."""
@@ -173,6 +178,9 @@ class Method:
     """
 
     name: str = "?"
+    # True where `build` and `graft_index` take the handle's torch device
+    # as `device=` (`FilteredIndex.get_index` and live compaction pass it)
+    builds_on_device: bool = False
 
     def param_settings(self) -> list[ParamSetting]:
         raise NotImplementedError

@@ -237,7 +237,10 @@ class FilteredIndex:
             build_params = tuple(sorted(build_params.items()))
         key = (method.name, build_params)
         if key not in self._indexes:
-            self._indexes[key] = method.build(self.ds, dict(build_params))
+            kw = ({"device": self.torch_device} if method.builds_on_device
+                  else {})
+            self._indexes[key] = method.build(self.ds, dict(build_params),
+                                              **kw)
         return self._indexes[key]
 
     def adopt_index(self, method, build_params, index) -> None:

@@ -1397,9 +1397,11 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                     grafted = None
                     old_index = old_fx._indexes.get((m_name, build))
                     if self._graft and old_index is not None:
+                        kw = ({"device": self.torch_device}
+                              if m.builds_on_device else {})
                         grafted = m.graft_index(
                             new_ds, old_index, old_fx.ds, base_remap,
-                            new_from_delta, dict(build))
+                            new_from_delta, dict(build), **kw)
                     if grafted is not None:
                         new_fx.adopt_index(m, build, grafted)
                     else:

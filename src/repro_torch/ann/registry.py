@@ -1,7 +1,7 @@
 """Pluggable filtered-ANN method registry.
 
-Methods register once (the ported built-ins — Pre-filter, Post-filter,
-IVF-γ — auto-register on first use; new methods call `register_method`)
+Methods register once (the six built-ins auto-register on first use;
+new methods call `register_method`)
 and every consumer resolves them through live *views*:
 `candidate_methods()` is what the router selects among, `all_methods()`
 additionally includes non-candidates such as the exact Pre-filter

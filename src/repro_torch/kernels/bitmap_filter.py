@@ -15,9 +15,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.masked_topk import _predicate_mask_block
 
-QUERY_GROUP = 8          # queries per block (kGroup in csrc/selectivity.cu)
-MAX_SPLITS = 64          # row splits (the kernel's grid.y)
-MIN_SPLIT_ROWS = 4096    # fewest rows a split is given
+BLOCKS_PER_SM = 2        # blocks a launch aims for on each SM
+MAX_WORDS = 800          # widest bitmap whose two tiles fit in shared memory
 
 
 def selectivity_plain(qbms: torch.Tensor, bitmaps: torch.Tensor, *,
@@ -56,19 +55,30 @@ def selectivity_count(qbms: torch.Tensor, bitmaps: torch.Tensor, *,
         raise ValueError("selectivity inputs must be contiguous")
     if n >= 2 ** 31 - 2 ** 16:
         raise ValueError(f"selectivity takes fewer than 2^31 rows; got {n}")
+    if w > MAX_WORDS:
+        raise ValueError(f"selectivity takes at most {MAX_WORDS} words a "
+                         f"bitmap; got {w}")
     out = torch.empty((q,), dtype=torch.int32, device=dev)
     if q == 0:
         return out
-    groups = -(-q // QUERY_GROUP)
+    if bitmaps.data_ptr() % 16:          # the tiles move 16 bytes at a time
+        bitmaps = bitmaps.clone()
+    lib = _build.library()
+    # query groups of the kernel's block, and row splits of whole tiles,
+    # about BLOCKS_PER_SM blocks an SM in all
+    groups = -(-q // lib.selectivity_query_group(w))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(MAX_SPLITS, -(-4 * sms // groups),
-                        n // MIN_SPLIT_ROWS))
+    splits = max(1, min(-(-BLOCKS_PER_SM * sms // groups),
+                        -(-n // lib.selectivity_tile_rows(w))))
     part = torch.empty((splits, q), dtype=torch.int32, device=dev)
+    # the chunked kernel (w > 16) reads the query words as [W, Q]
+    qbm_t = qbms.t().contiguous() if w > 16 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _build.library().selectivity_launch(
-            qbms.data_ptr(), bitmaps.data_ptr(), part.data_ptr(),
-            out.data_ptr(), q, n, w, pred, splits, stream)
+        code = lib.selectivity_launch(
+            qbms.data_ptr(), None if qbm_t is None else qbm_t.data_ptr(),
+            bitmaps.data_ptr(), part.data_ptr(), out.data_ptr(), q, n, w,
+            pred, splits, stream)
     _build.check(code, "selectivity")
     _build.count_launch(selectivity_count)
     return out

@@ -209,6 +209,90 @@ def test_selectivity_kernel_exact(cuda, pred, q, n):
     assert bf.selectivity_count.launches == before + 1
 
 
+def _pattern_bitmaps(rng, q, n, w, pred):
+    """Rows drawn from 32 random label patterns, so every predicate passes
+    a sizeable share of rows; queries built for `pred` (a pattern for
+    EQUALITY, a subset of one for AND, a few bits for OR). Query 0 is
+    empty: it matches every row for AND."""
+    def words(shape):
+        return rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(
+            np.uint32)
+
+    pats = words((32, w)) & words((32, w)) & words((32, w))
+    bm = pats[rng.integers(0, 32, n)]
+    src = pats[rng.integers(0, 32, q)]
+    if pred == 0:
+        qb = src.copy()
+    elif pred == 1:
+        qb = src & words((q, w))
+    else:
+        qb = (rng.random((q, w)) < 0.3).astype(np.uint32) << \
+            rng.integers(0, 32, (q, w)).astype(np.uint32)
+    qb[0] = 0
+    return qb, bm
+
+
+@pytest.mark.parametrize("pred", [0, 1, 2])
+@pytest.mark.parametrize("q", [1, 7, 255, 300])
+@pytest.mark.parametrize("w", [1, 7, 13, 16, 32, 63])
+def test_selectivity_kernel_widths(cuda, pred, q, w):
+    """Every register-resident width class and the chunked path (W > 16),
+    at query counts that are not a multiple of the block's and a ragged
+    row count (not a multiple of the tile, nor of 4 words at odd W)."""
+    n = 70_001 if w < 32 else 9_001
+    qb, bm = _pattern_bitmaps(np.random.default_rng(w * 1000 + q), q, n, w,
+                              pred)
+    qbt = torch.from_numpy(qb.view(np.int32)).to(cuda)
+    bmt = torch.from_numpy(bm.view(np.int32)).to(cuda)
+    before = bf.selectivity_count.launches
+    got = bf.selectivity_count(qbt, bmt, pred=pred)
+    want = bf.selectivity_plain(qbt, bmt, pred=pred)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bf.selectivity_count.launches == before + 1
+    if q > 1 and pred == 1:
+        assert int(got[0]) == n            # the empty query
+
+
+@pytest.mark.parametrize("w", [3, 7])
+def test_selectivity_kernel_unaligned_rows(cuda, w):
+    """A view that starts one row in (not 16-byte aligned) counts as its
+    own rows do."""
+    qb, bm = _pattern_bitmaps(np.random.default_rng(w), 40, 5001, w, 2)
+    qbt = torch.from_numpy(qb.view(np.int32)).to(cuda)
+    bmt = torch.from_numpy(bm.view(np.int32)).to(cuda)[1:]
+    assert bmt.data_ptr() % 16
+    got = bf.selectivity_count(qbt, bmt, pred=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bf.selectivity_plain(qbt, bmt, pred=2))
+
+
+def _grid_set(seed, n=700, d=16, universe=40):
+    """Integer-grid vectors (multiples of 1/4, duplicated rows), 1-3
+    labels a row: every graph-build distance is exact in fp32."""
+    rng = np.random.default_rng(seed)
+    v = (rng.integers(-6, 7, (n, d)) / 4.0).astype(np.float32)
+    v[n // 2: n // 2 + n // 8] = v[: n // 8]
+    bm = np.zeros((n, (universe + 31) // 32), dtype=np.uint32)
+    for i in range(n):
+        for lab in rng.choice(universe, rng.integers(1, 4), replace=False):
+            bm[i, lab >> 5] |= np.uint32(1) << np.uint32(lab & 31)
+    return v, bm, universe
+
+
+@pytest.mark.parametrize("seed,n", [(0, 700), (1, 5000)])
+def test_graph_build_on_card_equals_host_build(cuda, seed, n):
+    from repro_torch.ann import graph
+
+    v, bm, u = _grid_set(seed, n=n)
+    host = graph.build_graph(v, bm, u, r=16, seed=seed, n_cand=40)
+    card = graph.build_graph_torch(v, bm, u, device=cuda, r=16, seed=seed,
+                                   n_cand=40)
+    np.testing.assert_array_equal(card.neighbors, host.neighbors)
+    assert card.medoid == host.medoid
+    np.testing.assert_array_equal(card.label_entry, host.label_entry)
+
+
 @pytest.mark.parametrize("pred", [0, 1, 2])
 @pytest.mark.parametrize("q,n,k", [(7, 256, 41), (25, 1024, 10),
                                    (37, 70001, 10)])
