@@ -31,9 +31,8 @@ not 0):
              `src/repro_torch/assets/router_all/`: the decisions and
              recall@10 of each predicate; (d) the kernels' launch counts,
              set to 0 just before (a) and read just after (c). The
-             sharded path and the queue route with the same router; the
-             live phase with `src/repro_torch/assets/router_ivf/`
-             (postfilter and ivf_gamma) and the same table rows.
+             sharded path, the queue, the live phase and the sharded
+             live phase route with the same router and table rows.
 6. profile — one pass of the exact and the routed path under
              torch.profiler; then each kernel timed on the path's inputs.
 7. slice 2 — the sharded path's kernels against their plain versions
@@ -61,13 +60,16 @@ not 0):
              before and read just after, the three exact batches fused
              with the chunk pruner (bit-identical to the unpruned read,
              the first GT_QUERIES against a host exact answer over the
-             live rows), routed search through `RouterService` and single
+             live rows), routed search through `RouterService` (the five
+             candidates' indexes built on the live base first) and single
              queries through `AsyncBatchQueue` over the live handle; the
              staged read, counted on its own and bit-identical to the
              fused; a snapshot read across a further write, and
-             `compact()` (the compacted index equal to a fresh
-             `FilteredIndex` over its dataset, `last_remap` translating
-             ids). Then profiles and times of the live path and kernels.
+             `compact()` (the fvamana graph and the IVF lists grafted,
+             sieve rebuilt, each graft or build timed; the compacted
+             index equal to a fresh `FilteredIndex` over its dataset,
+             `last_remap` translating ids). Then profiles and times of the
+             live path and kernels.
 9. any k   — slice 4: the select of the k > 128 paths, `merge_topk`,
              `fused_live` and `masked_topk_blocks` past k = 128 and the
              register-blocked tile scan (odd and wide D, bf16, W = 1 and
@@ -85,6 +87,29 @@ not 0):
              inputs (phases 7 and 8) and timed at k = 200 too. PERF.md's
              earlier times are printed on a line of their own, labelled
              as copied.
+10. sharded live — `ShardedLiveIndex(ds, 4, delta_chunk=512)` on the
+             card with phase 8's writes, and the reference answers first
+             (the single live handle's fused answers and routed decisions
+             over the same writes, the host exact answers, the queue's
+             batched answers, every candidate's index built on each
+             shard); then, with the launch counts set to 0 just before and
+             read just after: (a) exact search of each predicate, ids and
+             distance bits identical to the single live handle's fused
+             read, the first GT_QUERIES against the host exact answer;
+             (b) `ShardedRouterService` routing as `RouterService` over
+             the single live handle, with recall@10; (c) `AsyncBatchQueue`
+             over it, 300 single queries from 8 threads, answering as the
+             batched calls do. Then a snapshot read across a further
+             write, and `compact()` (a global rebuild; each shard's
+             indexes rebuilt and timed; the compacted handle bit-identical
+             to a `ShardedFilteredIndex(new_ds, 4)`, `last_remap`
+             translating ids), a profiled pass of (a) and (b), and the
+             path's kernels held to their plain versions on the phase's
+             own inputs (`merge_topk` bit for bit on the [4, 256, 10]
+             shard candidates; `fused_live` on shard 0's read; shard 0's
+             base overfetch, its first 64-query chunk at its own KB,
+             through `masked_topk_large` past k = 128), then `merge_topk`
+             and `fused_live` timed there.
 
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON line and `{"ok": true, "device": {...}}`. Without a CUDA device the
@@ -93,6 +118,7 @@ script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -113,12 +139,13 @@ from repro_torch.ann import bench  # noqa: E402
 from repro_torch.ann.dataset import ground_truth_topk, recall_at_k  # noqa: E402
 from repro_torch.ann.engine import DEFAULT_QCHUNK, to_device  # noqa: E402
 from repro_torch.ann.index import FilteredIndex, QueryBatch  # noqa: E402
-from repro_torch.ann.live import LiveFilteredIndex  # noqa: E402
+from repro_torch.ann.live import (LiveFilteredIndex,  # noqa: E402
+                                  ShardedLiveIndex)
 from repro_torch.ann.predicates import (PREDICATES, Predicate,  # noqa: E402
                                         eval_predicate_np)
 from repro_torch.ann import graph  # noqa: E402
-from repro_torch.ann.registry import (candidate_methods,  # noqa: E402
-                                      get_method)
+from repro_torch.ann.registry import (all_methods,  # noqa: E402
+                                      candidate_methods, get_method)
 from repro_torch.ann.service import (AsyncBatchQueue,  # noqa: E402
                                      RouterService, ShardedRouterService)
 from repro_torch.ann.sharded import (ShardedFilteredIndex,  # noqa: E402
@@ -180,8 +207,8 @@ EARLIER_MS = {"masked_topk": (0.395, 1.512, 1.721),
               "fused_live": (0.242, 0.483, 0.521),
               "masked_topk_large": (0.644, 1.641, 1.801)}
 
-# The router artifacts: all five candidates for the main path, the IVF
-# pair for the sharded, queue and live phases.
+# The router artifacts (the five candidates, `router_all`, for every
+# routed path).
 ASSETS = os.path.join(ROOT, "src", "repro_torch", "assets")
 
 # Word widths of the selectivity checks: the training specs' 1 (universe
@@ -975,15 +1002,87 @@ def run_path(fx, router_dir: str, nq: int, n_gt: int, seed: int = 11):
     return exact, routed, svc, summary, rows
 
 
-def ivf_service(fx, rows) -> RouterService:
-    """`RouterService(fx, router, t=0.9)` over the IVF pair's artifact
-    (`router_ivf`), with the main path's table-B rows of its methods."""
-    router = MLRouter.load(os.path.join(ASSETS, "router_ivf"))
-    for r in rows:
-        if r.method in router.methods:
-            router.table.add(fx.ds.name, r.pred, r.method, r.ps_id,
-                             r.mean_recall, r.qps)
-    return RouterService(fx, router, t=0.9)
+def build_on(fxs, names) -> dict:
+    """Every build setting of the methods `names` on each `FilteredIndex`
+    in `fxs` (a live handle's base, or each shard's), before a path's
+    launch counts are set to 0, so that its routed timings are those of
+    serving. Returns the seconds of each method over all of `fxs`."""
+    out = {}
+    for name in names:
+        method = get_method(name)
+        t0 = time.perf_counter()
+        for build in dict.fromkeys(s.build for s in method.param_settings()):
+            for fx in fxs:
+                fx.get_index(method, build)
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+    return out
+
+
+# The graph graft's steps `method_seconds` times, by their names in
+# `repro_torch.ann.graph`; `step_seconds` fails if a graft ran without one
+GRAFT_STEPS = ("beam_search", "_graft_edges_torch", "_back_insert")
+
+
+@contextlib.contextmanager
+def method_seconds():
+    """Time every method build and graft run while the block runs (a
+    compaction's): each registered method's `build` and `graft_index`
+    wrapped for the block, the card synchronised around each call; and
+    the steps of the graph graft (`graph.beam_search`, the new rows'
+    edges on the card, the host's reverse-edge loop `_back_insert`).
+    Yields the list of {method, step, seconds, grafted} it fills;
+    `step_seconds` sums it by method and step."""
+    calls = []
+    methods = [get_method(n) for n in all_methods()]
+
+    def timed(fn, name, step):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            calls.append({"method": name, "step": step,
+                          "seconds": time.perf_counter() - t0,
+                          "grafted": step == "graft" and out is not None})
+            return out
+        return call
+
+    for m in methods:
+        m.build = timed(m.build, m.name, "build")
+        m.graft_index = timed(m.graft_index, m.name, "graft")
+    saved = {p: getattr(graph, p) for p in GRAFT_STEPS}
+    for p in GRAFT_STEPS:
+        setattr(graph, p, timed(saved[p], "fvamana", "graft." + p))
+    try:
+        yield calls
+    finally:
+        for m in methods:
+            del m.build, m.graft_index
+        for p in GRAFT_STEPS:
+            setattr(graph, p, saved[p])
+
+
+def step_seconds(calls) -> dict:
+    """`method_seconds`'s calls summed by method: graft and build seconds
+    (over every build setting and shard), the graph graft's steps
+    (`graft.beam_search_s`, ...), and whether a graft took. Fails when
+    fvamana grafted but a step of `GRAFT_STEPS` was never timed."""
+    out = {}
+    for c in calls:
+        o = out.setdefault(c["method"], {"graft_s": 0.0, "build_s": 0.0,
+                                         "grafted": False})
+        key = c["step"] + "_s"
+        o[key] = o.get(key, 0.0) + c["seconds"]
+        o["grafted"] |= c["grafted"]
+    fv = out.get("fvamana", {})
+    missing = [p for p in GRAFT_STEPS
+               if fv.get("grafted") and "graft." + p + "_s" not in fv]
+    if missing:
+        raise AssertionError(f"the fvamana graft ran without the timed "
+                             f"steps {missing}: graph.graft_graph no "
+                             f"longer calls them by these names")
+    return out
 
 
 def reset_launches() -> None:
@@ -1487,13 +1586,16 @@ def live_answers(live, live_full, ds, batches: dict, routed: dict,
     before its launch counts are set to 0: each exact batch's unpruned
     fused read on `live_full`, each routed batch's exact answer on `live`
     (recall@10's truth) and the queue's workload over `svc`, the
-    `RouterService` on `live`."""
+    `RouterService` on `live`. Every candidate's index is built on the
+    live base first."""
     for h in (live, live_full):
         live_writes(h, ds)
     emit("live.writes", upserts=LIVE_UPSERTS, base_deletes=LIVE_BASE_DELETES,
          delta_deletes=LIVE_DELTA_DELETES, **{
              k: v for k, v in live.stats().items()
              if k in ("base_n", "delta_rows", "tombstones", "n_live")})
+    emit("live.build", seconds=build_on([live._base_fx], svc.router.methods),
+         built=[list(k) for k in live.built_keys()])
     F.dataset_features(ds, fx=live)       # once per handle, cached on it
     return {"unpruned": {p: live_full.search(b, "prefilter")
                          for p, b in batches.items()},
@@ -1600,7 +1702,8 @@ def run_live_compaction(live, ds, batches: dict) -> dict:
     pre = {p: live.search(b, "prefilter") for p, b in batches.items()}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen = live.compact()
+    with method_seconds() as steps:
+        gen = live.compact()
     compact_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e6
     remap = live.last_remap()
@@ -1624,11 +1727,40 @@ def run_live_compaction(live, ds, batches: dict) -> dict:
          base_n=st["base_n"], delta_rows=st["delta_rows"],
          tombstones=st["tombstones"], built=[list(k) for k in
                                              live.built_keys()],
-         peak_device_mb_during_compact=peak,
+         steps=step_seconds(steps), peak_device_mb_during_compact=peak,
          same_as_fresh="bit-identical", remap_translates_ids=True,
          check_s=time.perf_counter() - t0)
+    if not any(c["method"] == "fvamana" and c["grafted"] for c in steps):
+        raise AssertionError("compaction did not graft the fvamana graph")
     fresh.close()
     return {"compact_s": compact_s, "peak_device_mb_compact": peak}
+
+
+def time_fused_live(live, batch, dev, flush):
+    """`fused_live` and its plain version timed on the live handle's
+    inputs for `batch` (as `_run_fused` makes them), with the bound of
+    this launch's scanned rows and passing pairs. Returns (args, kwargs,
+    the overfetch width, ms, plain ms, (operations s, bytes s), rows
+    scanned, pairs passing)."""
+    pred = int(batch.pred)
+    d = live.device.vectors.shape[1]
+    args, kw, kb = live_kernel_inputs(live, batch)
+    _, qb, _, _, dvec, _, dbm, tomb = args
+    w = dbm.shape[1]
+    ms = time_ms(lambda: mk.fused_live_accum(*args, **kw, pred=pred,
+                                             k=batch.k), 10, flush)
+    pms = time_ms(lambda: mk.fused_live_plain(*args, **kw, pred=pred,
+                                              k=batch.k), 5, flush)
+    sel = kw["sel"]
+    rows = (torch.arange(dvec.shape[0], device=dev) if sel is None
+            else sel.long())
+    safe = rows.clamp(min=0)
+    live_row = ((rows >= 0) & (rows < live._delta.rows)
+                & ~mk.tombstone_bits_plain(tomb, safe + kw["base_n"]))
+    mask = mk._predicate_mask_block(dbm[safe], qb, pred) & live_row[None, :]
+    bound = fused_live_bound(mask, d, w, kb, batch.k, tomb.shape[0],
+                             sel is not None)
+    return args, kw, kb, ms, pms, bound, int(rows.shape[0]), int(mask.sum())
 
 
 def time_live_kernels(live, batches: dict, dev) -> dict:
@@ -1654,22 +1786,9 @@ def time_live_kernels(live, batches: dict, dev) -> dict:
         o["ops_s"] += bound[0]
         o["bytes_s"] += bound[1]
     for pred, batch in batches.items():
-        args, kw, kb = live_kernel_inputs(live, batch)
-        qv, qb, _, _, dvec, dnorm, dbm, tomb = args
-        ms = time_ms(lambda: mk.fused_live_accum(*args, **kw, pred=pred,
-                                                 k=batch.k), 10, flush)
-        pms = time_ms(lambda: mk.fused_live_plain(*args, **kw, pred=pred,
-                                                  k=batch.k), 5, flush)
-        sel = kw["sel"]
-        rows = (torch.arange(dvec.shape[0], device=dev) if sel is None
-                else sel.long())
-        safe = rows.clamp(min=0)
-        live_row = ((rows >= 0) & (rows < live._delta.rows)
-                    & ~mk.tombstone_bits_plain(tomb, safe + kw["base_n"]))
-        mask = (mk._predicate_mask_block(dbm[safe], qb, pred)
-                & live_row[None, :])
-        bound = fused_live_bound(mask, d, w, kb, batch.k, tomb.shape[0],
-                                 sel is not None)
+        args, kw, kb, ms, pms, bound, scanned, pairs = time_fused_live(
+            live, batch, dev, flush)
+        qv, qb = args[:2]
         add("fused_live", ms, pms, bound)
 
         base = (qv[:DEFAULT_QCHUNK], qb[:DEFAULT_QCHUNK], dd.vectors,
@@ -1687,8 +1806,8 @@ def time_live_kernels(live, batches: dict, dev) -> dict:
         out["masked_topk_large"]["k200_ms"] += l200
         out["masked_topk_large"]["k200_bound_s"] += max(b200)
         emit("live.kernels.time", pred=PRED_NAMES[pred], fused_live_q=batch.q,
-             fused_live_kb=kb, fused_live_scanned=int(rows.shape[0]),
-             fused_live_pairs=int(mask.sum()), fused_live_ms=ms,
+             fused_live_kb=kb, fused_live_scanned=scanned,
+             fused_live_pairs=pairs, fused_live_ms=ms,
              fused_live_plain_ms=pms, fused_live_bound_ms=max(bound) * 1e3,
              fused_live_bound_ops_ms=bound[0] * 1e3,
              fused_live_bound_bytes_ms=bound[1] * 1e3,
@@ -1770,6 +1889,257 @@ def run_anyk(fx, sfx, live, batches: dict, want: dict, want_mb: dict,
              live_fused_same_as_staged="bit-identical", gt_queries=n_gt,
              gt_identical=same, multiblock_same_as_masked_topk=True,
              matched=int((fused.ids >= 0).sum()))
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the sharded live index
+# ---------------------------------------------------------------------------
+
+def single_live_answers(live, svc, routed: dict, fused: dict,
+                        truth: dict) -> dict:
+    """What phase 10 holds the sharded live handle to, from the single live
+    handle `live` after phase 8's writes and its service `svc`: the fused
+    answers `fused` of `run_live_reads`, each routed batch's decisions, the
+    exact truths `truth` and the live rows in id order (the host exact
+    answer's input). The global ids of both handles agree: base rows keep
+    their row ids, upserts number on in insertion order."""
+    return {"fused": fused, "truth": truth, "rows": live_rows(live),
+            "decisions": {p: svc.route(b) for p, b in routed.items()}}
+
+
+def sharded_live_answers(live4, ds, svc4, batches: dict) -> dict:
+    """Phase 8's writes on the sharded live handle `live4`, then, before
+    the phase's launch counts are set to 0: every candidate's index built
+    on each shard, the dataset-level features and the full-base feature
+    tensors, and the queue's workload over `svc4` (the batched route's
+    decisions and the batched exact ids)."""
+    live_writes(live4, ds)
+    st = live4.stats()
+    emit("sharded_live.writes", upserts=LIVE_UPSERTS,
+         base_deletes=LIVE_BASE_DELETES, delta_deletes=LIVE_DELTA_DELETES,
+         base_n=st["base_n"], delta_rows=st["delta_rows"],
+         n_live=st["n_live"],
+         shard_delta_rows=[sh["delta_rows"] for sh in st["shards"]],
+         shard_tombstones=[sh["tombstones"] for sh in st["shards"]])
+    emit("sharded_live.build",
+         seconds=build_on([sh._base_fx for sh in live4.shards],
+                          svc4.router.methods),
+         built=[list(k) for k in live4.shards[0].built_keys()])
+    F.dataset_features(ds, fx=live4)      # once per handle, cached on it
+    live4.device
+    return {"queue": queue_workload(live4, svc4, batches, QUEUE_PER_PRED)}
+
+
+def run_sharded_live(live4, svc4, batches: dict, routed: dict, single: dict,
+                     want: dict, n_gt: int) -> dict:
+    """The sharded live path: (a) exact search of each batch, ids, keys
+    and distance bits identical to the single live handle's fused answers
+    in `single` (`single_live_answers`), the first `n_gt` queries against
+    the host exact answer; (b) `ShardedRouterService` `svc4`, the single
+    live service's decisions, recall@10 against the exact truth; (c) the
+    queue over it (`want`, `sharded_live_answers`). Returns a summary."""
+    out = {"recall_at_10": {}}
+    rows = single["rows"]
+    t0 = time.perf_counter()
+    for pred, batch in batches.items():
+        res = live4.search(batch, "prefilter")
+        if not same_bits(res, single["fused"][pred]):
+            raise AssertionError(f"sharded live exact search differs from "
+                                 f"the single live handle's, "
+                                 f"{PRED_NAMES[pred]}")
+        check_live_result(rows, batch, res,
+                          f"sharded live {PRED_NAMES[pred]}")
+        same = hold_live_against_ground_truth(rows, batch, res.ids, n_gt)
+        emit("sharded_live.exact", pred=PRED_NAMES[pred], q=batch.q,
+             same_as_single_live="bit-identical", gt_queries=n_gt,
+             gt_identical=same, base_s=res.timings["base_s"],
+             delta_s=res.timings["delta_s"], **stage_summary(res.timings))
+    out["exact_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for pred, batch in routed.items():
+        res = svc4.search(batch)
+        if res.decisions != single["decisions"][pred]:
+            raise AssertionError(f"sharded live routing decisions differ "
+                                 f"from the single live service's, "
+                                 f"{PRED_NAMES[pred]}")
+        check_live_result(rows, batch, res,
+                          f"sharded live routed {PRED_NAMES[pred]}")
+        rec = float(recall_at_k(res.ids, single["truth"][pred]).mean())
+        out["recall_at_10"][PRED_NAMES[pred]] = rec
+        hist = {}
+        for m, ps in res.decisions:
+            hist[f"{m}/{ps}"] = hist.get(f"{m}/{ps}", 0) + 1
+        emit("sharded_live.routed", pred=PRED_NAMES[pred], q=batch.q,
+             recall_at_10=rec, decisions=hist, same_decisions=True,
+             base_s=res.timings["base_s"], delta_s=res.timings["delta_s"],
+             **stage_summary(res.timings))
+    out["routed_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = run_queue(live4, svc4, want["queue"], label="sharded_live.queue")
+    out["queue_s"] = time.perf_counter() - t0
+    out["queue_batches"] = {k: v["batches"] for k, v in stats.items()}
+    return out
+
+
+def pinned_search(live4, batch, snap):
+    """Exact search of `batch` on the pinned epoch `snap`: (ids, scores,
+    keys)."""
+    prefilter = get_method("prefilter")
+    ids, raw = live4.run_method(prefilter, prefilter.param_settings()[0],
+                                batch, snapshot=snap)
+    return ids, raw, live4.keys_of(ids, snapshot=snap)
+
+
+def run_sharded_live_compaction(live4, batches: dict) -> dict:
+    """A snapshot read across a further write (the queries' own vectors
+    upserted, each query's current top-1 deleted: the pinned epoch
+    answers unchanged, a fresh one sees the write), then `compact()`: a
+    global rebuild (each shard's indexes rebuilt and timed), the
+    compacted handle's exact answers bit-identical to a
+    `ShardedFilteredIndex(new_ds, SHARDS)`, `last_remap` taking the ids of
+    the answers before to those after, with the same keys."""
+    batch = batches[int(Predicate.AND)]
+    with live4.snapshot() as snap:
+        before = pinned_search(live4, batch, snap)
+        top = before[0][:64, 0]
+        new = live4.upsert(batch.vectors[:64], batch.bitmaps[:64])
+        live4.delete(np.unique(top[top >= 0]))
+        pinned = pinned_search(live4, batch, snap)
+    now = live4.search(batch, "prefilter")
+    if not (np.array_equal(pinned[0], before[0])
+            and np.array_equal(pinned[1].view(np.int32),
+                               before[1].view(np.int32))
+            and np.array_equal(pinned[2], before[2])):
+        raise AssertionError("a sharded snapshot's answer changed under a "
+                             "write")
+    if not np.array_equal(now.ids[:64, 0], new):
+        raise AssertionError("the current sharded epoch does not see the "
+                             "write")
+    emit("sharded_live.snapshot", pinned_unchanged=True, write_seen=True,
+         upserted=int(new.size))
+    pre = {p: live4.search(b, "prefilter") for p, b in batches.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with method_seconds() as steps:
+        gen = live4.compact()
+    compact_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    remap = live4.last_remap()
+    t0 = time.perf_counter()
+    with ShardedFilteredIndex(live4.ds, SHARDS,
+                              device=live4.torch_device) as sfx:
+        for pred, b in batches.items():
+            got = live4.search(b, "prefilter")
+            want = sfx.search(b, "prefilter")
+            if not (np.array_equal(got.ids, want.ids) and np.array_equal(
+                    got.distances.view(np.int32),
+                    want.distances.view(np.int32))):
+                raise AssertionError(f"the compacted sharded live index "
+                                     f"differs from a ShardedFilteredIndex, "
+                                     f"{PRED_NAMES[pred]}")
+            ok = pre[pred].ids >= 0
+            moved = np.where(ok, remap[np.maximum(pre[pred].ids, 0)], -1)
+            if not (np.array_equal(moved, got.ids)
+                    and np.array_equal(pre[pred].keys, got.keys)):
+                raise AssertionError(f"sharded last_remap does not "
+                                     f"translate the ids, "
+                                     f"{PRED_NAMES[pred]}")
+    st = live4.stats()
+    emit("sharded_live.compact", compact_s=compact_s, generation=gen,
+         base_n=st["base_n"], delta_rows=st["delta_rows"],
+         shard_rows=np.diff(live4.bounds).tolist(),
+         steps=step_seconds(steps),
+         peak_device_mb_during_compact=peak,
+         same_as_sharded_index="bit-identical", remap_translates_ids=True,
+         check_s=time.perf_counter() - t0)
+    return {"compact_s": compact_s, "peak_device_mb_compact": peak}
+
+
+def time_sharded_live_kernels(live4, batches: dict, dev) -> dict:
+    """`merge_topk` on the [4, 256, 10] globalised candidates the shards'
+    live reads give each exact batch (with `torch.topk` over the
+    shard-major copy), and `fused_live` on shard 0's inputs for it, each
+    with its plain version and bound. Each output is held against its
+    plain version's on the same inputs first: `merge_topk` bit for bit,
+    `fused_live` as `hold_fused_to_plain` holds it, and the shard's base
+    overfetch (its first 64-query chunk at the shard's own KB, past
+    MAX_K through `masked_topk_large`) as `hold_to_plain` holds it, all
+    with the tolerance `check_live_path_kernels` uses. Returns per-kernel
+    sums over the three predicates, and under "max_abs_err" the largest
+    error of each kernel it held."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+    out = {name: dict(ms=0.0, plain_ms=0.0, bound_s=0.0)
+           for name in ("merge_topk", "fused_live")}
+    out["merge_topk"]["library_ms"] = 0.0
+    errs = {"merge_topk": 0.0, "fused_live": 0.0}
+    shard = live4.shards[0]
+    d = shard.device.vectors.shape[1]
+    prefilter = get_method("prefilter")
+    setting = prefilter.param_settings()[0]
+    for pred, batch in batches.items():
+        with live4.snapshot() as snap:
+            parts = live4.shard_candidates(prefilter, setting, batch, snap)
+        ids, raw = stack_candidates(parts)
+        dt, it = on_card(dev, raw, ids)
+        s_, q_, kk = dt.shape
+        flat = dt.transpose(0, 1).reshape(q_, s_ * kk).contiguous()
+        mms = time_ms(lambda: mk.merge_topk_accum(dt, it, k=batch.k), 20,
+                      flush)
+        mpms = time_ms(lambda: mk.merge_topk_plain(dt, it, k=batch.k), 10,
+                       flush)
+        lms = time_ms(lambda: torch.topk(flat, batch.k, dim=1,
+                                         largest=False), 20, flush)
+        mbound = merge_topk_bound(s_, q_, kk, batch.k)
+        gd, gi = mk.merge_topk_accum(dt, it, k=batch.k)
+        pd, pi = mk.merge_topk_plain(dt, it, k=batch.k)
+        torch.cuda.synchronize()
+        if not (torch.equal(gi, pi) and torch.equal(
+                gd.view(torch.int32), pd.view(torch.int32))):
+            raise AssertionError(f"merge_topk differs from its plain "
+                                 f"version on the sharded live candidates, "
+                                 f"{PRED_NAMES[pred]}")
+        args, kw, kb, fms, fpms, fbound, scanned, pairs = time_fused_live(
+            shard, batch, dev, flush)
+        qv, qb, dvec = args[0], args[1], args[4]
+        vn = max(float(shard.device.norms.max()),
+                 float((dvec ** 2).sum(1).max()) if dvec.shape[0] else 0.0
+                 ) ** 0.5
+        qn = float(qv.norm(dim=1).max())
+        tol = 2 * d * 2.0 ** -24 * (vn * vn + 2 * qn * vn)
+        gd, gi = mk.fused_live_accum(*args, **kw, pred=pred, k=batch.k)
+        pd, pi = mk.fused_live_plain(*args, **kw, pred=pred, k=batch.k)
+        ferr = hold_fused_to_plain(pred, args, kw, gd, gi, pd, pi, tol)
+        errs["fused_live"] = max(errs["fused_live"], ferr)
+        base = (qv[:DEFAULT_QCHUNK], qb[:DEFAULT_QCHUNK],
+                shard.device.vectors, shard.device.norms,
+                shard.device.bitmaps)
+        large = kb > mk.MAX_K
+        scan = "masked_topk_large" if large else "masked_topk"
+        gd, gi = (mk.masked_topk_large if large else mk.masked_topk_accum)(
+            *base, pred=pred, k=kb)
+        pd, pi = mk.masked_topk_plain(*base, pred=pred, k=kb)
+        serr = hold_to_plain(scan, pred, base, gd, gi, pd, pi, tol)
+        errs[scan] = max(errs.get(scan, 0.0), serr)
+        for name, ms, pms, bound in (("merge_topk", mms, mpms, mbound),
+                                     ("fused_live", fms, fpms, fbound)):
+            out[name]["ms"] += ms
+            out[name]["plain_ms"] += pms
+            out[name]["bound_s"] += max(bound)
+        out["merge_topk"]["library_ms"] += lms
+        emit("sharded_live.kernels.time", pred=PRED_NAMES[pred],
+             merge_topk_shape=[s_, q_, kk], merge_topk_ms=mms,
+             merge_topk_plain_ms=mpms, merge_topk_torch_topk_ms=lms,
+             merge_topk_bound_ms=max(mbound) * 1e3, fused_live_shard=0,
+             fused_live_kb=kb, fused_live_scanned=scanned,
+             fused_live_pairs=pairs, fused_live_ms=fms,
+             fused_live_plain_ms=fpms, fused_live_bound_ms=max(fbound) * 1e3,
+             merge_topk_same_as_plain="bit-identical",
+             fused_live_max_abs_err=ferr, base_scan=scan, base_scan_k=kb,
+             base_scan_q=int(base[0].shape[0]),
+             base_scan_max_abs_err=serr, tol=tol)
+    del flush
+    out["max_abs_err"] = errs
+    return out
 
 
 def profile_phase(name: str, fn) -> None:
@@ -1874,8 +2244,6 @@ def main() -> int:
                                     for b in exact_batches.values()])
     profile_phase("routed", lambda: [svc.search(b)
                                      for b in routed.values()])
-    # the live phase routes between the IVF pair (ROADMAP, queue 1)
-    svc_ivf = ivf_service(fx, rows)
 
     t0 = time.perf_counter()
     times = time_kernels(fx, exact_batches, dev)
@@ -1967,7 +2335,7 @@ def main() -> int:
                                   delta_prune_min_rows=LIVE_UPSERTS + 1)
     for h in (live, live_full):
         h.device                              # upload the bases
-    live_svc = RouterService(live, svc_ivf.router, t=0.9)
+    live_svc = RouterService(live, svc.router, t=0.9)
     want_live = live_answers(live, live_full, ds, exact_batches, routed,
                              live_svc)
     live_full.close()
@@ -1984,6 +2352,9 @@ def main() -> int:
     for name in ("fused_live", "masked_topk_large", "selectivity"):
         if launches_live[name] == 0:
             raise AssertionError(f"the live path never launched {name}")
+    # phase 10's references: the single live handle over the same writes
+    single_live = single_live_answers(live, live_svc, routed, live_fused,
+                                      want_live["truth"])
     reset_launches()
     staged_s = run_live_staged(live, exact_batches, live_fused)
     launches_staged = read_launches()
@@ -2052,6 +2423,57 @@ def main() -> int:
          launches=read_launches())
     live.close()
 
+    # phase 10, the sharded live index: phase 8's writes and the reference
+    # answers first, then (a)-(c) with the launch counts set to 0 just
+    # before and read just after; snapshot and compaction counted apart
+    t0 = time.perf_counter()
+    live4 = ShardedLiveIndex(ds, SHARDS, delta_chunk=LIVE_CHUNK)
+    for shard in live4.shards:
+        shard.device                          # upload the shards' bases
+    torch.cuda.synchronize()
+    emit("sharded_live.open", shards=SHARDS,
+         shard_rows=np.diff(live4.bounds).tolist(),
+         devices=live4.stats()["devices"], seconds=time.perf_counter() - t0)
+    svc4 = ShardedRouterService(live4, svc.router, t=0.9)
+    want4 = sharded_live_answers(live4, ds, svc4, exact_batches)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sl_summary = run_sharded_live(live4, svc4, exact_batches, routed,
+                                  single_live, want4, GT_QUERIES)
+    launches_sl = read_launches()
+    emit("sharded_live", seconds=time.perf_counter() - t0,
+         launches=launches_sl,
+         peak_device_mb=torch.cuda.max_memory_allocated() / 1e6,
+         prune=[sh.stats()["delta_prune"] for sh in live4.shards],
+         **sl_summary)
+    if launches_sl["masked_topk"] + launches_sl["masked_topk_large"] == 0:
+        raise AssertionError("the sharded live path never launched a "
+                             "masked top-k")
+    for name in ("fused_live", "merge_topk", "selectivity"):
+        if launches_sl[name] == 0:
+            raise AssertionError(f"the sharded live path never launched "
+                                 f"{name}")
+    del single_live
+    profile_phase("sharded_live_exact",
+                  lambda: [live4.search(b, "prefilter")
+                           for b in exact_batches.values()])
+    profile_phase("sharded_live_routed", lambda: [svc4.search(b)
+                                                  for b in routed.values()])
+    t0 = time.perf_counter()
+    sl_times = time_sharded_live_kernels(live4, exact_batches, dev)
+    emit("sharded_live.kernels.timing", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    reset_launches()
+    sl_summary.update(run_sharded_live_compaction(live4, exact_batches))
+    emit("sharded_live.compaction_path", seconds=time.perf_counter() - t0,
+         launches=read_launches())
+    live4.close()
+    launches_by_path = {"main": launches, "sharded": launches_sharded,
+                        "queue": launches_queue, "multiblock": launches_mb,
+                        "live": launches_live, "live_staged": launches_staged,
+                        "anyk": launches_anyk, "sharded_live": launches_sl}
+
     src = "src/repro_torch/kernels/csrc/"
     rows = []
     for name, source, replaces, n_launch, work in (
@@ -2098,13 +2520,23 @@ def main() -> int:
         row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launch[name],
-            "max_abs_err": errs[name], "ms": t["ms"],
+            "max_abs_err": max(errs[name],
+                               sl_times["max_abs_err"].get(name, 0.0)),
+            "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_s"] * 1e3,
             "bound_by": ("operations" if t["ops_s"] >= t["bytes_s"]
                          else "bytes"),
             "library_ms": (t["library_ms"] if name == "merge_topk"
                            else None),
+            "launches_by_path": {p: c[name]
+                                 for p, c in launches_by_path.items()},
             "work": work}
+        if name in sl_times:
+            row.update(sharded_live_ms=sl_times[name]["ms"],
+                       sharded_live_plain_ms=sl_times[name]["plain_ms"],
+                       sharded_live_bound_ms=sl_times[name]["bound_s"] * 1e3)
+        if name in sl_times["max_abs_err"]:
+            row["sharded_live_max_abs_err"] = sl_times["max_abs_err"][name]
         if name in ("masked_topk_large", "masked_topk_blocks"):
             row.update(k200_ms=t["k200_ms"],
                        k200_bound_ms=t["k200_bound_s"] * 1e3)

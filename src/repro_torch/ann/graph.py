@@ -234,12 +234,7 @@ def build_graph_torch(vectors: np.ndarray, bitmaps: np.ndarray,
                 nrm[rsafe] - 2.0 * torch.einsum("bd,bpd->bp", rv,
                                                 vec[rsafe])], dim=1)
             dq = dq.masked_fill(pool < 0, INF)
-            # stable ascending order: (float order, pool position) keys
-            pos = torch.arange(dq.shape[1], device=device)
-            key = (topk.order_key(dq).long() << 32) | pos[None, :]
-            c = min(n_cand, n - 1, dq.shape[1])
-            top = torch.topk(key, c, dim=1, largest=False,
-                             sorted=True).indices
+            top = _stable_smallest(dq, min(n_cand, n - 1, dq.shape[1]))
             sel = occlusion_prune_torch(
                 torch.gather(pool, 1, top), torch.gather(dq, 1, top), vec,
                 nrm, alpha, keep_n)
@@ -321,7 +316,7 @@ def graft_graph(old: VamanaGraph, vectors: np.ndarray, bitmaps: np.ndarray,
                 universe: int, old_to_new: np.ndarray, new_rows: np.ndarray,
                 r: int = 32, alpha: float = 1.2, seed: int = 0,
                 n_cand: int = 64, n_random_edges: int = 2,
-                device="cpu") -> VamanaGraph:
+                device="cuda") -> VamanaGraph:
     """Graft a compacted dataset onto an existing graph (FreshDiskANN-style
     StreamingMerge) instead of rebuilding it.
 
@@ -331,12 +326,17 @@ def graft_graph(old: VamanaGraph, vectors: np.ndarray, bitmaps: np.ndarray,
     slot layout bit-for-bit (so an identity remap reproduces the old
     graph exactly). Each new row (`new_rows`, ids in the *new*
     dataset) finds its edge pool by beam-searching the surviving graph
-    from the medoid (on `device`) plus its nearest other new rows, then
-    runs the same α-occlusion prune as the offline build; its selected
-    edges are back-inserted into the targets' free (or farthest, if
-    closer) slots so the new rows are reachable. Label entry points
-    recompute only for labels whose old entry died. Deterministic for
-    fixed inputs.
+    from the medoid plus its nearest other new rows, then runs the same
+    α-occlusion prune as the offline build; its selected edges are
+    back-inserted into the targets' free (or farthest, if closer) slots
+    so the new rows are reachable. Label entry points recompute only for
+    labels whose old entry died. Deterministic for fixed inputs.
+
+    The new rows' pools and prune run on `device` (`_graft_edges_torch`:
+    the JAX package's float32 steps, the nearest new rows a block at a
+    time instead of its [B, B] matrix). The back-insertion stays a
+    sequential host loop: each insertion sees the rows the earlier ones
+    changed.
     """
     n = vectors.shape[0]
     rng = np.random.default_rng(seed)
@@ -382,49 +382,19 @@ def graft_graph(old: VamanaGraph, vectors: np.ndarray, bitmaps: np.ndarray,
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
+        vec_t, nrm_t = dev(vectors), dev(norms)
         pool_ids, pool_d = beam_search(
-            dev(nv), dev(seeds), dev(neighbors), dev(vectors), dev(norms),
+            dev(nv), dev(seeds), dev(neighbors), vec_t, nrm_t,
             l_search=L, iters=L // 2)
-        pool_ids = pool_ids.cpu().numpy()
-        pool_d = pool_d.cpu().numpy().astype(np.float32)
-        if b > 1:
-            dn = norms[new_rows][None, :] - 2.0 * (nv @ nv.T)
-            np.fill_diagonal(dn, np.inf)
-            t = min(16, b - 1)
-            nn_idx = np.argsort(dn, axis=1, kind="stable")[:, :t]
-            pool_ids = np.concatenate(
-                [pool_ids, new_rows[nn_idx].astype(np.int32)], axis=1)
-            pool_d = np.concatenate(
-                [pool_d, np.take_along_axis(dn, nn_idx, axis=1)
-                 .astype(np.float32)], axis=1)
-        merge = np.argsort(pool_d, axis=1, kind="stable")[:, :n_cand]
-        cid = np.take_along_axis(pool_ids, merge, axis=1)
-        cdist = np.take_along_axis(pool_d, merge, axis=1)
-        cid = np.where(cid == new_rows[:, None], -1, cid)
-        cdist = np.where(cid < 0, np.inf, cdist)
-        sel = occlusion_prune(cid, cdist, vectors, norms, alpha,
-                              max(rr - n_random_edges, 1))
+        keep_n = max(rr - n_random_edges, 1)
+        sel = _graft_edges_torch(pool_ids, pool_d, dev(new_rows), vec_t,
+                                 nrm_t, n_cand, alpha, keep_n).cpu().numpy()
         neighbors[new_rows, :sel.shape[1]] = sel
         if n_random_edges > 0:
             neighbors[new_rows, rr - n_random_edges:] = rng.integers(
                 0, n, size=(b, n_random_edges))
 
-        # reverse edges: make new rows reachable from their targets
-        for i, u in enumerate(new_rows):
-            for v in sel[i]:
-                if v < 0 or v == u:
-                    continue
-                row = neighbors[v]
-                if (row == u).any():
-                    continue
-                free = np.nonzero(row < 0)[0]
-                if free.size:
-                    row[free[0]] = u
-                else:
-                    dv = norms[row] - 2.0 * vectors[v] @ vectors[row].T
-                    w = int(np.argmax(dv))
-                    if float(norms[u] - 2.0 * vectors[v] @ vectors[u]) < dv[w]:
-                        row[w] = u
+        _back_insert(neighbors, new_rows, sel, vectors, norms)
 
     # 4. label entries: carry survivors, recompute orphaned labels only
     carried = np.where(old.label_entry >= 0,
@@ -434,3 +404,72 @@ def graft_graph(old: VamanaGraph, vectors: np.ndarray, bitmaps: np.ndarray,
                  [l for l in range(universe) if carried[l] < 0], label_entry)
     return VamanaGraph(neighbors=neighbors, medoid=medoid,
                        label_entry=label_entry)
+
+
+def _back_insert(neighbors: np.ndarray, new_rows: np.ndarray,
+                 sel: np.ndarray, vectors: np.ndarray,
+                 norms: np.ndarray) -> None:
+    """Reverse edges, in place: each new row u becomes reachable from
+    every target v of its edges `sel`, in v's first free slot, or in
+    place of v's farthest neighbour if u is closer. One row after
+    another, as the JAX package's loop: each insertion sees the rows the
+    earlier ones changed."""
+    for i, u in enumerate(new_rows):
+        for v in sel[i]:
+            if v < 0 or v == u:
+                continue
+            row = neighbors[v]
+            if (row == u).any():
+                continue
+            free = np.nonzero(row < 0)[0]
+            if free.size:
+                row[free[0]] = u
+            else:
+                dv = norms[row] - 2.0 * vectors[v] @ vectors[row].T
+                w = int(np.argmax(dv))
+                if float(norms[u] - 2.0 * vectors[v] @ vectors[u]) < dv[w]:
+                    row[w] = u
+
+
+def _stable_smallest(d: torch.Tensor, c: int) -> torch.Tensor:
+    """[B, c] positions of each row's c smallest entries in ascending
+    order, ties to the lower position: a stable argsort's first c."""
+    pos = torch.arange(d.shape[1], device=d.device)
+    key = (topk.order_key(d).long() << 32) | pos[None, :]
+    return torch.topk(key, c, dim=1, largest=False, sorted=True).indices
+
+
+def _graft_edges_torch(pool_ids: torch.Tensor, pool_d: torch.Tensor,
+                       new_rows: torch.Tensor, vectors: torch.Tensor,
+                       norms: torch.Tensor, n_cand: int, alpha: float,
+                       keep_n: int) -> torch.Tensor:
+    """The new rows' [B, keep_n] pruned edges on tensors of one device:
+    each row's beam pool [B, L] plus its nearest other new rows, the
+    `n_cand` nearest of both (stable), itself dropped, then
+    `occlusion_prune_torch`. The JAX package's float32 scores and stable
+    orders, ROW_CHUNK new rows at a time instead of its [B, B] matrix
+    (65,536 new rows would need 17 GB for it and a host sort of every
+    row)."""
+    b = new_rows.shape[0]
+    rows = new_rows.long()
+    nv, nn = vectors[rows], norms[rows]
+    t = min(16, b - 1)
+    out = []
+    for s in range(0, b, ROW_CHUNK):
+        e = min(s + ROW_CHUNK, b)
+        ids, d = pool_ids[s:e], pool_d[s:e]
+        if t > 0:
+            dn = nn[None, :] - 2.0 * (nv[s:e] @ nv.T)             # [c, B]
+            local = torch.arange(e - s, device=dn.device)
+            dn[local, local + s] = INF
+            nn_idx = _stable_smallest(dn, t)
+            ids = torch.cat([ids, new_rows[nn_idx].to(torch.int32)], dim=1)
+            d = torch.cat([d, torch.gather(dn, 1, nn_idx)], dim=1)
+        merge = _stable_smallest(d, min(n_cand, d.shape[1]))
+        cid = torch.gather(ids, 1, merge)
+        cdist = torch.gather(d, 1, merge)
+        cid = torch.where(cid == new_rows[s:e, None].to(torch.int32), -1, cid)
+        cdist = cdist.masked_fill(cid < 0, INF)
+        out.append(occlusion_prune_torch(cid, cdist, vectors, norms, alpha,
+                                         keep_n))
+    return torch.cat(out)

@@ -42,14 +42,21 @@ base is spliced onto the compacted dataset through `Method.graft_index`
 (IVF lists carry surviving rows through the id remap with frozen
 centroids), with a full build for methods that do not graft.
 
-`RouterService` and `AsyncBatchQueue` serve this handle as they serve a
-sealed one; routing features stay fresh through `live_stats()`, which
-`repro_torch.core.features` reads (live per-label counts and exact live
-selectivity corrections).
+`ShardedLiveIndex` scales the same surface across row shards: upserts
+round-robin over per-shard live handles, a read pins one cross-shard
+epoch (`ShardedLiveSnapshot`), fans out to the shards' fused reads and
+folds their globalised candidates through `ops.merge_topk`, and
+compaction rebuilds globally and re-shards.
 
-Not ported yet from the JAX package's module: `ShardedLiveIndex`, the
-write-ahead-log hook (`attach_wal`, with the store), the resource-ledger
-gauges and leases and the trace spans (with the serving ops).
+`RouterService` and `AsyncBatchQueue` serve these handles as they serve a
+sealed one (`ShardedRouterService` the sharded one); routing features
+stay fresh through `live_stats()`, which `repro_torch.core.features`
+reads (live per-label counts and exact live selectivity corrections).
+
+Not ported yet from the JAX package's module: the write-ahead-log hooks
+(`attach_wal` and the WAL calls in the writes and compactions of both
+handles, with the store), the resource-ledger gauges and leases and the
+trace spans (with the serving ops).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from repro_torch.ann import engine as engine_mod
 from repro_torch.ann import labels as lb
 from repro_torch.ann import registry as registry_mod
 from repro_torch.ann.dataset import ANNDataset
+from repro_torch.ann.distributed import shard_bounds, shard_devices
 from repro_torch.ann.engine import ParamSetting, resolve_setting, to_device
 from repro_torch.ann.index import (FilteredIndex, QueryBatch, SearchResult,
                                    exact_distances, resolve_device)
@@ -1512,4 +1520,793 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                 "delta_chunk_indexes": len(self._delta._chunk_idx),
                 "delta_prune": dict(self._prune_stats),
                 "closed": self._closed,
+            }
+
+
+# ---------------------------------------------------------------------------
+# sharded live index — round-robin upserts over per-shard delta segments
+# ---------------------------------------------------------------------------
+
+class ShardedLiveSnapshot:
+    """Consistent cross-shard read epoch: one pinned `LiveSnapshot` per
+    shard plus the shard list, bounds, gid maps, global key prefix and
+    delta locations of the epoch, all captured under the sharded index's
+    write lock. Pins the epoch (an old shard list survives a compaction
+    swap) until `release()`, which is idempotent; a context manager."""
+
+    __slots__ = ("epoch", "shards", "bounds", "snaps", "gmaps", "keys",
+                 "next_key", "locs", "base_ds", "_owner", "_released")
+
+    def __init__(self, owner, epoch, shards, bounds, snaps, gmaps,
+                 keys, next_key, locs, base_ds):
+        self.epoch = epoch
+        self.shards = shards
+        self.bounds = bounds
+        self.snaps = snaps
+        self.gmaps = gmaps
+        self.keys = keys
+        self.next_key = next_key
+        self.locs = locs
+        self.base_ds = base_ds
+        self._owner = owner
+        self._released = False
+
+    def release(self) -> None:
+        """Unpin this epoch (idempotent, thread-safe)."""
+        with self._owner._lock:
+            if self._released:
+                return
+            self._released = True
+        for snap in self.snaps:
+            snap.release()
+        self._owner._release_epoch(self.epoch)
+
+    def __enter__(self) -> "ShardedLiveSnapshot":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
+class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
+    """Row-sharded live handle: one `LiveFilteredIndex` per shard.
+
+    Upserts round-robin row by row across shards; global delta ids are
+    assigned in insertion order (`total_base_n + j`) and mapped to
+    (shard, local row), so `delete()` and result globalisation agree.
+    `run_method` snapshots every shard under one lock (a consistent
+    cross-shard epoch), fans out, globalises the per-shard ids and
+    reduces through `ops.merge_topk` (the `merge_topk` kernel on a card).
+    Each shard serves its own read through the fused kernel (`fused` and
+    `delta_prune_min_rows` forward to the per-shard handles). `compact()`
+    rebuilds **globally**: every surviving row merges into one fresh
+    dataset that is re-sharded contiguously, so the result is exactly a
+    `ShardedFilteredIndex` over the compacted data (rows migrate across
+    shard boundaries, so per-shard method indexes are rebuilt, not
+    grafted).
+
+    Args mirror `ShardedFilteredIndex` (`device="cuda"` round-robins the
+    shards over the host's cards, all on the one card of a one-card host;
+    "cpu" puts them on the host), plus the empty-base form of
+    `LiveFilteredIndex` through `name`/`dim`/`universe` and its
+    `delta_chunk`, `base_keys`, `next_key`, `generation`, `fused` and
+    `delta_prune_min_rows`. Raises ValueError for `n_shards < 1`.
+
+    The JAX package's handle also logs every write to an attached
+    write-ahead log (`attach_wal`) and opens a `shard` trace span around
+    each shard run; the store and the tracing layer are not ported yet,
+    so this one keeps only the stage timings.
+    """
+
+    def __init__(self, ds: ANNDataset | None = None, n_shards: int = 1, *,
+                 name: str | None = None, dim: int | None = None,
+                 universe: int | None = None, device="cuda", registry=None,
+                 parallel: bool = True,
+                 delta_chunk: int = DEFAULT_DELTA_CHUNK,
+                 base_keys: np.ndarray | None = None,
+                 next_key: int | None = None, generation: int = 0,
+                 fused: bool = True,
+                 delta_prune_min_rows: int | None = None):
+        n_shards = int(n_shards)
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1; got {n_shards}")
+        devices = shard_devices(n_shards, device)
+        self._registry = registry
+        self._delta_chunk = int(delta_chunk)
+        self._devices = devices
+        self._fused = bool(fused)
+        self._delta_prune_min_rows = delta_prune_min_rows
+        if ds is None:
+            if name is None or dim is None or universe is None:
+                raise ValueError(
+                    "an empty ShardedLiveIndex needs name=, dim= and "
+                    "universe= (or pass a base ANNDataset)")
+            self._name, self._dim = str(name), int(dim)
+            self._universe = int(universe)
+            self._base_ds: ANNDataset | None = None
+            self.bounds = np.zeros(n_shards + 1, dtype=np.int64)
+            self.shards = self._empty_shards()
+        else:
+            self._name, self._dim = ds.name, ds.dim
+            self._universe = ds.universe
+            self._base_ds = ds
+            self.bounds = shard_bounds(ds.n, n_shards)
+            self.shards = self._base_shards(ds, self.bounds)
+        self._total_base = 0 if ds is None else ds.n
+        self._delta_loc: list[tuple[int, int]] = []  # gid-j -> (shard, row)
+        self._shard_gids: list[list[int]] = [[] for _ in self.shards]
+        self._gid_arrays: list[np.ndarray] | None = None   # search cache
+        self._last_remap: np.ndarray | None = None
+        self._next_shard = 0
+        if base_keys is None:
+            self._keys = np.arange(self._total_base, dtype=np.int64)
+        else:
+            self._keys = np.asarray(base_keys, dtype=np.int64).copy()
+            if self._keys.shape != (self._total_base,):
+                raise ValueError(
+                    f"base_keys must be [{self._total_base}]; got shape "
+                    f"{self._keys.shape}")
+        self._next_key = int(next_key) if next_key is not None else \
+            (int(self._keys.max()) + 1 if self._total_base else 0)
+        self._key_rows: KeyTable | None = None   # key -> gid, built lazily
+        self._pool = (ThreadPoolExecutor(
+            max_workers=n_shards,
+            thread_name_prefix=f"live-shard-{self._name}")
+            if parallel and n_shards > 1 else None)
+        self._lock = threading.RLock()
+        self._clock_init()
+        self._epoch = int(generation)
+        self._epoch_readers: dict[int, int] = {}
+        self._old_shards: dict[int, list] = {}
+        self._feature_fx: FilteredIndex | None = None
+        self._compact_pool: ThreadPoolExecutor | None = None
+        self._compacting: Future | None = None
+        self._features = None       # repro_torch.core.features cache slot
+        self._closed = False
+
+    def _shard_kw(self) -> dict:
+        return dict(registry=self._registry, delta_chunk=self._delta_chunk,
+                    fused=self._fused,
+                    delta_prune_min_rows=self._delta_prune_min_rows)
+
+    def _base_shards(self, ds: ANNDataset, bounds) -> list:
+        return [LiveFilteredIndex(
+                    ds.row_slice(int(s), int(e), name=f"{ds.name}/shard{i}"),
+                    device=self._devices[i], **self._shard_kw())
+                for i, (s, e) in enumerate(zip(bounds[:-1], bounds[1:]))]
+
+    def _empty_shards(self) -> list:
+        return [LiveFilteredIndex.empty(
+                    f"{self._name}/shard{i}", self._dim, self._universe,
+                    device=self._devices[i], **self._shard_kw())
+                for i in range(len(self._devices))]
+
+    # ---- lifecycle ------------------------------------------------------
+    @property
+    def fused(self) -> bool:
+        """Whether shards serve reads through the fused kernel; setting
+        it propagates to every current shard (and to shards created by
+        later compactions)."""
+        return self._fused
+
+    @fused.setter
+    def fused(self, value: bool) -> None:
+        self._fused = bool(value)
+        for s in self.shards:
+            s.fused = self._fused
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    @property
+    def ds(self) -> ANNDataset | None:
+        """The current generation's full base dataset (None before the
+        first compaction of an empty-started index)."""
+        return self._base_ds
+
+    @property
+    def generation(self) -> int:
+        return self._epoch
+
+    @property
+    def n_live(self) -> int:
+        with self._lock:
+            return sum(s.n_live for s in self.shards)
+
+    @property
+    def base_n(self) -> int:
+        return self._total_base
+
+    @property
+    def n_total(self) -> int:
+        with self._lock:
+            return self._total_base + len(self._delta_loc)
+
+    @property
+    def torch_device(self) -> torch.device:
+        """Shard 0's device: where the routing features and the
+        cross-shard merge run."""
+        return self._devices[0]
+
+    @property
+    def feature_index(self) -> FilteredIndex:
+        """Full-base `FilteredIndex` on shard 0's device, built at first
+        use: the `selectivity` kernel of the routing features reads its
+        bitmaps (per-shard bitmaps would under-count)."""
+        with self._lock:
+            self._check_open()
+            if self._base_ds is None:
+                raise RuntimeError(f"ShardedLiveIndex({self._name!r}) has "
+                                   f"no sealed base yet")
+            if self._feature_fx is None:
+                self._feature_fx = FilteredIndex(
+                    self._base_ds, registry=self._registry,
+                    device=self.torch_device)
+            return self._feature_fx
+
+    @property
+    def device(self):
+        """Full-base device tensors (routing-feature path only)."""
+        return self.feature_index.device
+
+    def close(self) -> None:
+        """Wait out a running compaction (its swap is skipped once
+        closed), close every shard of every epoch and the feature handle,
+        shut the pools down. Idempotent."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            comp = self._compacting
+        if comp is not None:
+            try:
+                comp.result(timeout=300)
+            except Exception:       # its failure belongs to its own caller
+                pass
+        with self._lock:
+            for s in self.shards:
+                s.close()
+            for old in self._old_shards.values():
+                for s in old:
+                    s.close()
+            self._old_shards.clear()
+            if self._feature_fx is not None:
+                self._feature_fx.close()
+                self._feature_fx = None
+            self._features = None
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+        if self._compact_pool is not None:
+            self._compact_pool.shutdown(wait=True)
+            self._compact_pool = None
+
+    def __enter__(self) -> "ShardedLiveIndex":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError(
+                f"ShardedLiveIndex({self._name!r}) is closed")
+
+    # ---- write path -----------------------------------------------------
+    def upsert(self, vectors, bitmaps, *, keys=None) -> np.ndarray:
+        """Append rows, round-robin across shards. Returns [R] global ids
+        (current generation); `keys=` as in `LiveFilteredIndex.upsert`
+        (stable global keys, auto-assigned when omitted)."""
+        vectors = np.asarray(vectors, dtype=np.float32)
+        bitmaps = np.asarray(bitmaps, dtype=np.uint32)
+        if vectors.ndim == 1:
+            vectors = vectors[None]
+        if bitmaps.ndim == 1:
+            bitmaps = bitmaps[None]
+        if vectors.ndim != 2 or vectors.shape[1] != self._dim:
+            raise ValueError(
+                f"upsert vectors must be [R, {self._dim}]; got "
+                f"{vectors.shape}")
+        width = lb.n_words(self._universe)
+        if bitmaps.shape != (vectors.shape[0], width):
+            raise ValueError(
+                f"upsert bitmaps must be [{vectors.shape[0]}, {width}]; "
+                f"got {bitmaps.shape}")
+        counts = _label_counts(bitmaps, self._universe)
+        with self._lock:
+            self._check_open()
+            n = vectors.shape[0]
+            ks = self._claim_keys(keys, n)
+            nsh = self.n_shards
+            shard_of = (self._next_shard + np.arange(n)) % nsh
+            gid0 = self._total_base + len(self._delta_loc)
+            d0 = len(self._delta_loc)
+            self._delta_loc.extend([None] * n)
+            for s in range(nsh):
+                rows = np.nonzero(shard_of == s)[0]
+                if rows.size == 0:
+                    continue
+                start_local = self.shards[s]._delta.rows
+                self.shards[s].upsert(vectors[rows], bitmaps[rows])
+                for off, j in enumerate(rows.tolist()):
+                    self._delta_loc[d0 + j] = (s, start_local + off)
+                self._shard_gids[s].extend((gid0 + rows).tolist())
+            self._keys = np.concatenate([self._keys, ks])
+            self._note_new_keys(ks, gid0)
+            self._clock_touch(counts)
+            self._gid_arrays = None           # snapshots rebuild lazily
+            self._next_shard = (self._next_shard + n) % nsh
+            return np.arange(gid0, gid0 + n, dtype=np.int64)
+
+    def _row_live(self, rows: np.ndarray) -> np.ndarray:
+        """bool[R]: which current-generation global ids are live (mixin
+        hook; caller holds the lock)."""
+        return np.array([self._gid_live(int(g)) for g in rows], bool)
+
+    def _shard_local(self, gid: int) -> tuple[int, int]:
+        """(shard, shard-local id) for a current-generation global id."""
+        if gid < self._total_base:
+            s = int(np.searchsorted(self.bounds, gid, side="right")) - 1
+            return s, gid - int(self.bounds[s])
+        s, row = self._delta_loc[gid - self._total_base]
+        return s, self.shards[s].base_n + row
+
+    def _gid_live(self, gid: int) -> bool:
+        s, lid = self._shard_local(int(gid))
+        return not self.shards[s]._tomb[lid]
+
+    def delete(self, ids) -> int:
+        """Tombstone global ids; returns the number newly deleted. Raises
+        IndexError on out-of-range ids."""
+        ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
+        with self._lock:
+            self._check_open()
+            n_tot = self._total_base + len(self._delta_loc)
+            if ids.size and (ids.min() < 0 or ids.max() >= n_tot):
+                raise IndexError(
+                    f"delete ids must be in [0, {n_tot}); got range "
+                    f"[{ids.min()}, {ids.max()}]")
+            per: dict[int, list] = {}
+            for gid in ids.tolist():
+                s, lid = self._shard_local(gid)
+                per.setdefault(s, []).append(lid)
+            # stamp before delegating: labels of every named id (a
+            # conservative superset — already-dead ids stamp too)
+            if ids.size:
+                bms = np.concatenate(
+                    [self.shards[s]._bitmaps_of(np.asarray(lids, np.int64))
+                     for s, lids in per.items()])
+                self._clock_touch(_label_counts(bms, self._universe))
+            return sum(self.shards[s].delete(lids)
+                       for s, lids in per.items())
+
+    # stable external keys (`keys_of`/`rows_of`/`delete_keys`/`_claim_keys`)
+    # come from _StableKeyMixin (global ids / global keys).
+
+    # ---- read path -------------------------------------------------------
+    def snapshot(self) -> ShardedLiveSnapshot:
+        """Pin a consistent cross-shard read epoch (see
+        `ShardedLiveSnapshot`); callers must `release()` it."""
+        with self._lock:
+            self._check_open()
+            epoch = self._epoch
+            shards = list(self.shards)
+            bounds = self.bounds.copy()
+            snaps = [s.snapshot() for s in shards]
+            if self._gid_arrays is None:      # invalidated by upsert
+                self._gid_arrays = [np.asarray(g, dtype=np.int64)
+                                    for g in self._shard_gids]
+            n_tot = self._total_base + len(self._delta_loc)
+            self._epoch_readers[epoch] = \
+                self._epoch_readers.get(epoch, 0) + 1
+            # keys slice is a view: _keys is reassigned, never mutated in
+            # place (see LiveFilteredIndex.snapshot)
+            return ShardedLiveSnapshot(self, epoch, shards, bounds, snaps,
+                                       self._gid_arrays, self._keys[:n_tot],
+                                       self._next_key, list(self._delta_loc),
+                                       self._base_ds)
+
+    def shard_candidates(self, method, setting: ParamSetting,
+                         batch: QueryBatch, snap: ShardedLiveSnapshot
+                         ) -> list:
+        """Every shard's live read of the pinned epoch `snap` (in
+        parallel on the pool), with ids globalised: a base id plus its
+        shard's offset, a delta id through the insertion-order map. One
+        ([Q, k] int32 ids, [Q, k] float32 scores) pair per shard, on the
+        host. Stage timings accumulate on the calling thread: `base_s`
+        and `delta_s` of the slowest shard, `shard{j}_s` and
+        `shard_max_s`."""
+        inline = self._pool is None
+        times = [0.0] * len(snap.shards)
+
+        def shard_run(jsv):
+            # drain the shard's stage timings in the thread that ran it
+            # (they live on a thread-local); run inline, keep the
+            # caller's own slate apart
+            j, (shard, ssnap) = jsv
+            saved = engine_mod.pop_stage_timings() if inline else {}
+            s0 = time.perf_counter()
+            out = shard.run_method(method, setting, batch, snapshot=ssnap)
+            times[j] = time.perf_counter() - s0
+            got = shard.pop_stage_timings()
+            self._stage_add(saved)
+            return out, got
+
+        items = list(enumerate(zip(snap.shards, snap.snaps)))
+        ran = ([shard_run(it) for it in items] if inline
+               else list(self._pool.map(shard_run, items)))
+        # shards overlap in wall-clock: report the slowest stage
+        for key in ("base_s", "delta_s"):
+            vals = [t.get(key, 0.0) for _, t in ran]
+            if any(vals):
+                self._stage_add({key: max(vals)})
+        # per-shard wall seconds + the straggler (the latency the fan-out
+        # waits for — a sum would hide it)
+        self._stage_add({f"shard{j}_s": s for j, s in enumerate(times)})
+        self._stage_add({"shard_max_s": max(times)})
+        parts = []
+        for s, (((ids, raw), _), ssnap) in enumerate(zip(ran, snap.snaps)):
+            ids = np.asarray(ids, dtype=np.int64)
+            out = np.full(ids.shape, -1, np.int64)
+            is_base = (ids >= 0) & (ids < ssnap.base_n)
+            out[is_base] = ids[is_base] + int(snap.bounds[s])
+            is_delta = ids >= ssnap.base_n
+            if is_delta.any():
+                out[is_delta] = snap.gmaps[s][ids[is_delta] - ssnap.base_n]
+            parts.append((out.astype(np.int32),
+                          np.asarray(raw, dtype=np.float32)))
+        return parts
+
+    def run_method(self, method, setting: ParamSetting, batch: QueryBatch,
+                   *, snapshot: ShardedLiveSnapshot | None = None
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """Raw sharded live execution: `shard_candidates` over one
+        consistent cross-shard epoch, then the `merge_topk` reduction of
+        the [S, Q, k] candidates. Pass `snapshot=` to pin several calls to
+        one epoch.
+
+        Returns the `FilteredIndex.run_method` contract ([Q, k] int32
+        global ids with −1 pad, [Q, k] float32 scores with +inf at −1).
+        Stage timings accumulate on the calling thread (those of
+        `shard_candidates`, and `merge_s`)."""
+        self._check_open()
+        snap = snapshot if snapshot is not None else self.snapshot()
+        try:
+            parts = self.shard_candidates(method, setting, batch, snap)
+            t0 = time.perf_counter()
+            gids, graw = merge_candidates(*stack_candidates(parts),
+                                          k=batch.k, device=self.torch_device)
+            self._stage_add({"merge_s": time.perf_counter() - t0})
+            return gids, graw
+        finally:
+            if snapshot is None:
+                snap.release()
+
+    def _release_epoch(self, epoch: int) -> None:
+        with self._lock:
+            left = self._epoch_readers.get(epoch, 0) - 1
+            if left > 0:
+                self._epoch_readers[epoch] = left
+                return
+            self._epoch_readers.pop(epoch, None)
+            old = (self._old_shards.pop(epoch, None)
+                   if epoch != self._epoch else None)
+        if old:
+            for s in old:
+                s.close()
+
+    def search(self, batch: QueryBatch, method,
+               setting: ParamSetting | str | None = None) -> SearchResult:
+        """Direct single-method sharded live search (no routing); the
+        result carries the rows' stable `keys`."""
+        self._check_open()
+        if isinstance(method, str):
+            reg = self._registry or registry_mod.default_registry()
+            method = reg.get(method)
+        if not isinstance(setting, ParamSetting):
+            setting = resolve_setting(method, setting)
+        self.pop_stage_timings()
+        t0 = time.perf_counter()
+        snap = self.snapshot()
+        try:
+            ids, raw = self.run_method(method, setting, batch, snapshot=snap)
+            keys = self.keys_of(ids, snapshot=snap)
+        finally:
+            snap.release()
+        dt = time.perf_counter() - t0
+        timings = {"search_s": dt, "total_s": dt}
+        timings.update(self.pop_stage_timings())
+        return SearchResult(
+            ids=ids, distances=exact_distances(raw, ids, batch.vectors),
+            decisions=None, timings=timings, keys=keys)
+
+    def _delta_rows(self, snaps: list, locs):
+        """Host (vectors, bitmaps, tombstone flags) of the delta rows at
+        `locs` ((shard, row) pairs), read through the per-shard snapshots
+        `snaps` of one epoch."""
+        width = lb.n_words(self._universe)
+        vec = np.zeros((len(locs), self._dim), np.float32)
+        bm = np.zeros((len(locs), width), np.uint32)
+        dead = np.zeros(len(locs), bool)
+        if locs:
+            loc_shard = np.array([l[0] for l in locs], np.int64)
+            loc_row = np.array([l[1] for l in locs], np.int64)
+            for s, ssnap in enumerate(snaps):
+                mine = loc_shard == s
+                if not mine.any():
+                    continue
+                sv, sb, _ = ssnap.delta.host_view(ssnap.delta_rows)
+                rows = loc_row[mine]
+                vec[mine] = sv[rows]
+                bm[mine] = sb[rows]
+                dead[mine] = ssnap.tombstones[ssnap.base_n + rows]
+        return vec, bm, dead
+
+    def fetch(self, ids, snapshot: ShardedLiveSnapshot | None = None
+              ) -> np.ndarray:
+        """[R, d] vectors for global result ids (−1 rows come back as
+        NaN), the sharded mirror of `LiveFilteredIndex.fetch`. With a
+        snapshot, ids are read in that epoch's global id space."""
+        snap = snapshot or self.snapshot()
+        try:
+            ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
+            out = np.full((ids.size, self._dim), np.nan, np.float32)
+            base_n = int(snap.bounds[-1])
+            base = (ids >= 0) & (ids < base_n)
+            if base.any():
+                out[base] = snap.base_ds.vectors[ids[base]]
+            delta = ids >= base_n
+            if delta.any():
+                vec, _, _ = self._delta_rows(
+                    snap.snaps,
+                    [snap.locs[int(g) - base_n] for g in ids[delta]])
+                out[delta] = vec
+            return out
+        finally:
+            if snapshot is None:
+                snap.release()
+
+    # ---- routing-feature freshness ---------------------------------------
+    def live_stats(self) -> LiveStats:
+        """Aggregate live-set summary across shards (one consistent epoch:
+        shard stats and the base dataset are read under the lock a
+        compaction swap takes)."""
+        with self._lock:
+            per = [s.live_stats() for s in self.shards]
+            base_ds = self._base_ds
+        n_live = sum(p.n_live for p in per)
+        counts = sum((p.label_freq * p.n_live for p in per),
+                     np.zeros(self._universe))
+        return LiveStats(
+            n_live=n_live,
+            label_freq=counts / max(n_live, 1),
+            base_tomb_bitmaps=np.concatenate(
+                [p.base_tomb_bitmaps for p in per]),
+            delta_bitmaps=np.concatenate([p.delta_bitmaps for p in per]),
+            base_ds=base_ds)
+
+    # ---- compaction ------------------------------------------------------
+    def compact(self, timeout: float | None = None) -> int:
+        """Global rebuild + re-shard; blocks, returns the new epoch."""
+        return self.compact_async().result(timeout=timeout)
+
+    def compact_async(self) -> Future:
+        """Background global compaction: merge every shard's surviving
+        base and delta rows (in global id order) into one fresh dataset,
+        re-shard it contiguously, swap the shard list atomically, and
+        close the old shards once their epoch's readers drain. Writes made
+        during the rebuild carry over exactly as in
+        `LiveFilteredIndex.compact_async`. A second call while one runs
+        returns the same Future."""
+        with self._lock:
+            self._check_open()
+            if self._compacting is not None and not self._compacting.done():
+                return self._compacting
+            if self._compact_pool is None:
+                self._compact_pool = ThreadPoolExecutor(
+                    max_workers=1,
+                    thread_name_prefix=f"compact-{self._name}")
+            fut = self._compact_pool.submit(self._compact_job)
+            self._compacting = fut
+            return fut
+
+    def _gather(self, snaps, locs):
+        """Surviving rows in global id order + the kept-gid list."""
+        vec_parts, bm_parts, kept = [], [], []
+        for s, snap in enumerate(snaps):
+            if snap.base_n == 0:
+                continue
+            keep = ~snap.tombstones[: snap.base_n]
+            ds = self.shards[s]._base_for(snap).ds
+            vec_parts.append(ds.vectors[keep])
+            bm_parts.append(ds.bitmaps[keep])
+            kept.append(int(self.bounds[s]) + np.nonzero(keep)[0])
+        if locs:
+            dvec, dbm, dead = self._delta_rows(snaps, locs)
+            vec_parts.append(dvec[~dead])
+            bm_parts.append(dbm[~dead])
+            kept.append(self._total_base + np.nonzero(~dead)[0])
+        if vec_parts:
+            return (np.concatenate(vec_parts), np.concatenate(bm_parts),
+                    np.concatenate(kept))
+        width = lb.n_words(self._universe)
+        return (np.zeros((0, self._dim), np.float32),
+                np.zeros((0, width), np.uint32), np.zeros(0, np.int64))
+
+    def _compact_job(self) -> int:
+        snaps = None
+        try:
+            with self._lock:
+                snaps = [s.snapshot() for s in self.shards]
+                locs = list(self._delta_loc)
+                old_total = self._total_base + len(locs)
+                old_keys = self._keys[:old_total].copy()
+            vectors, bitmaps, kept = self._gather(snaps, locs)
+            new_ds, order = ANNDataset.from_packed(
+                self._name, vectors, bitmaps, self._universe,
+                return_order=True)
+            inv = np.empty(order.size, np.int64)
+            inv[order] = np.arange(order.size)
+            remap = np.full(old_total, -1, np.int64)
+            remap[kept] = inv
+            new_keys = np.empty(new_ds.n, np.int64)
+            new_keys[remap[kept]] = old_keys[kept]
+            nsh = self.n_shards
+            built = []
+            for s in self.shards:
+                built.extend(k for k in s.built_keys() if k not in built)
+            if new_ds.n >= nsh:
+                new_bounds = shard_bounds(new_ds.n, nsh)
+                new_shards = self._base_shards(new_ds, new_bounds)
+                new_base: ANNDataset | None = new_ds
+            else:
+                # fewer surviving rows than shards: restart from empty
+                # shards and replay the rows as delta below
+                new_bounds = np.zeros(nsh + 1, dtype=np.int64)
+                new_shards = self._empty_shards()
+                new_base = None
+            for shard in new_shards:
+                if shard._base_fx is None:
+                    continue
+                for m_name, build in built:
+                    try:
+                        shard._base_fx.get_index(m_name, build)
+                    except KeyError:
+                        pass            # method no longer registered
+            with self._lock:
+                if self._closed:
+                    for s in new_shards:
+                        s.close()
+                    return self._epoch
+                old_shards = self.shards
+                tail = self._delta_loc[len(locs):]
+                late_tomb: list[int] = []       # old gids deleted late
+                for s, snap in enumerate(snaps):
+                    cur = old_shards[s]._tomb
+                    newly = cur[: snap.n_total] & ~snap.tombstones
+                    for lid in np.nonzero(newly)[0].tolist():
+                        if lid < snap.base_n:
+                            late_tomb.append(int(self.bounds[s]) + lid)
+                        else:
+                            late_tomb.append(
+                                int(self._shard_gids[s][lid - snap.base_n]))
+                # tail rows (upserted during the rebuild) in global
+                # insertion order, with their current tombstones
+                tail_rows = []
+                for s, row in tail:
+                    shard = old_shards[s]
+                    tail_rows.append((shard._delta._vec[row],
+                                      shard._delta._bm[row],
+                                      bool(shard._tomb[shard.base_n + row])))
+                tail_keys = self._keys[old_total: old_total + len(tail)]
+                old_epoch = self._epoch
+                self.shards = new_shards
+                self.bounds = new_bounds
+                self._base_ds = new_base
+                self._total_base = new_ds.n if new_base is not None else 0
+                self._delta_loc = []
+                self._shard_gids = [[] for _ in new_shards]
+                self._gid_arrays = None
+                self._next_shard = 0
+                self._keys = (new_keys if new_base is not None
+                              else np.zeros(0, np.int64))
+                self._key_rows = None
+                self._epoch = old_epoch + 1
+                self._last_remap = remap
+                self._features = None       # dataset features went stale
+                if self._feature_fx is not None:
+                    self._feature_fx.close()
+                    self._feature_fx = None
+                # replay: rows that missed the snapshot (and every row
+                # when the base fell below the shard count), with their
+                # stable keys
+                replay = []
+                if new_base is None and new_ds.n:
+                    replay.append((new_ds.vectors, new_ds.bitmaps, None,
+                                   new_keys))
+                if tail_rows:
+                    replay.append((
+                        np.stack([t[0] for t in tail_rows]),
+                        np.stack([t[1] for t in tail_rows]),
+                        np.array([t[2] for t in tail_rows], bool),
+                        tail_keys))
+                for vecs, bms, dead, ks in replay:
+                    gids = self.upsert(vecs, bms, keys=ks)
+                    if dead is not None and dead.any():
+                        self.delete(gids[dead])
+                if late_tomb:
+                    ng = remap[np.asarray(late_tomb, np.int64)]
+                    ng = ng[(ng >= 0) & (ng < self._total_base
+                                         + len(self._delta_loc))]
+                    if ng.size:
+                        self.delete(ng)
+                if self._epoch_readers.get(old_epoch):
+                    self._old_shards[old_epoch] = old_shards
+                else:
+                    for s in old_shards:
+                        s.close()
+                return self._epoch
+        finally:
+            if snaps is not None:
+                for snap in snaps:
+                    snap.release()
+            with self._lock:
+                self._compacting = None
+
+    # ---- maintenance -----------------------------------------------------
+    def export_state(self, snap: ShardedLiveSnapshot) -> dict:
+        """Full logical state of a pinned cross-shard epoch in *global* id
+        order, all numpy: `LiveFilteredIndex.export_state`'s dict (the
+        JAX package's, with its `base_ds` as packed arrays)."""
+        base_n = int(snap.bounds[-1])
+        width = lb.n_words(self._universe)
+        dvec, dbm, delta_dead = self._delta_rows(snap.snaps, snap.locs)
+        dead = [base_n + np.nonzero(delta_dead)[0]]
+        for s, ssnap in enumerate(snap.snaps):
+            lids = np.nonzero(ssnap.tombstones[: ssnap.base_n])[0]
+            if lids.size:
+                dead.append(int(snap.bounds[s]) + lids)
+        base = snap.base_ds
+        return {
+            "generation": snap.epoch,
+            "name": self._name,
+            "universe": self._universe,
+            "base_vectors": (np.zeros((0, self._dim), np.float32)
+                             if base is None else base.vectors),
+            "base_bitmaps": (np.zeros((0, width), np.uint32)
+                             if base is None else base.bitmaps),
+            "base_keys": snap.keys[:base_n],
+            "delta_vectors": dvec,
+            "delta_bitmaps": dbm,
+            "delta_keys": snap.keys[base_n:],
+            "dead_ids": np.sort(np.concatenate(dead)).astype(np.int64),
+            "next_key": snap.next_key,
+        }
+
+    def last_remap(self) -> np.ndarray | None:
+        """Global-id translation of the most recent `compact()` (see
+        `LiveFilteredIndex.last_remap`)."""
+        return self._last_remap
+
+    def stats(self) -> dict:
+        """Aggregate + per-shard state snapshot."""
+        with self._lock:
+            return {
+                "dataset": self._name,
+                "devices": [str(d) for d in self._devices],
+                "generation": self._epoch,
+                "n_shards": self.n_shards,
+                "base_n": self._total_base,
+                "delta_rows": len(self._delta_loc),
+                "n_live": sum(s.n_live for s in self.shards),
+                "next_key": self._next_key,
+                "compacting": (self._compacting is not None
+                               and not self._compacting.done()),
+                "closed": self._closed,
+                "shards": [s.stats() for s in self.shards],
             }

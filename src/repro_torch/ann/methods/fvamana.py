@@ -38,7 +38,7 @@ class FVamana(engine.Method):
         ]
 
     def build(self, ds: ANNDataset, build_params: dict,
-              device="cpu") -> graph.VamanaGraph:
+              device="cuda") -> graph.VamanaGraph:
         r = int(build_params.get("r", 32))
         if torch.device(device).type == "cpu":
             return graph.build_graph(ds.vectors, ds.bitmaps, ds.universe,
@@ -59,7 +59,7 @@ class FVamana(engine.Method):
 
     def graft_index(self, new_ds: ANNDataset, old_index: graph.VamanaGraph,
                     old_ds: ANNDataset, old_to_new, new_rows, build_params,
-                    device="cpu"):
+                    device="cuda"):
         n_surv = int((old_to_new >= 0).sum())
         # grafting pays off only while the surviving graph dominates; a
         # mostly-new dataset searches better on a fresh build

@@ -24,8 +24,9 @@ Scaling layers on top of the facade:
   or `max_wait_ms`, whichever trips first) so the device sees batched
   traffic without callers coordinating.
 
-Both serve a `repro_torch.ann.live.LiveFilteredIndex` as they serve a
-sealed handle: a routed batch reads one snapshot of it.
+Both serve the live handles of `repro_torch.ann.live` as they serve a
+sealed one: a routed batch reads one snapshot of a `LiveFilteredIndex`,
+or one cross-shard snapshot of a `ShardedLiveIndex`.
 
 The JAX package's services also take `telemetry=`, `tracer=`, `slo=` and
 `obslog=` hooks, and its queue probes a semantic cache and reports to a
@@ -47,6 +48,7 @@ from repro_torch.ann import engine
 from repro_torch.ann import registry as registry_mod
 from repro_torch.ann.index import (FilteredIndex, QueryBatch, RoutingDecision,
                                    SearchResult, exact_distances)
+from repro_torch.ann.live import ShardedLiveIndex
 from repro_torch.ann.predicates import Predicate
 from repro_torch.ann.sharded import ShardedFilteredIndex
 
@@ -229,7 +231,8 @@ class RouterService:
 
 
 class ShardedRouterService(RouterService):
-    """`RouterService` over a `repro_torch.ann.sharded.ShardedFilteredIndex`.
+    """`RouterService` over a `repro_torch.ann.sharded.ShardedFilteredIndex`
+    or a `repro_torch.ann.live.ShardedLiveIndex`.
 
     The routed pipeline is unchanged — and that is the point: the batch
     is routed **once** (one fused MLP forward over full-dataset features;
@@ -239,18 +242,22 @@ class ShardedRouterService(RouterService):
     own row partition in parallel and the per-shard candidates reduce
     through the `ops.merge_topk` kernel inside the handle's `run_method`.
 
+    A sharded live handle is read under one cross-shard snapshot a batch
+    (`RouterService.execute`).
+
     Args:
-        index: a `ShardedFilteredIndex` (TypeError otherwise — a plain
-            `FilteredIndex` belongs in `RouterService`).
+        index: a `ShardedFilteredIndex` or `ShardedLiveIndex` (TypeError
+            otherwise — a plain `FilteredIndex`/`LiveFilteredIndex`
+            belongs in `RouterService`).
         router / t / methods: as in `RouterService`.
     """
 
     def __init__(self, index, router, *, t: float = 0.9, methods=None):
-        if not isinstance(index, ShardedFilteredIndex):
+        if not isinstance(index, (ShardedFilteredIndex, ShardedLiveIndex)):
             raise TypeError(
-                f"ShardedRouterService needs a ShardedFilteredIndex; got "
-                f"{type(index).__name__} (use RouterService for "
-                f"single-index handles)")
+                f"ShardedRouterService needs a ShardedFilteredIndex or "
+                f"ShardedLiveIndex; got {type(index).__name__} (use "
+                f"RouterService for single-index handles)")
         super().__init__(index, router, t=t, methods=methods)
 
 

@@ -20,8 +20,9 @@ a CPU handle (or without one) from the group-table reduction. Both are
 exact integer counts divided by n, so the columns are bit-identical
 across devices.
 
-A live handle (`repro_torch.ann.live.LiveFilteredIndex`, anything with
-`live_stats()`) corrects the columns to its live rows: selectivity
+A live handle (`repro_torch.ann.live.LiveFilteredIndex` or
+`ShardedLiveIndex`, anything with `live_stats()`) corrects the columns to
+its live rows: selectivity
 counts lose the tombstoned base rows' matches and gain the live delta
 rows', over the live row count; the per-label frequencies and the
 `size` feature are the live ones.

@@ -601,3 +601,69 @@ def test_fused_live_kernel_signed_zero_base_candidates(cuda):
         assert torch.equal(gd.view(torch.int32), pd.view(torch.int32))
         assert gi[:, 0].tolist() == [20] * q and gi[:, 1].tolist() == [10] * q
         assert torch.signbit(gd[:, 0]).all() and not torch.signbit(gd[:, 1]).any()
+
+
+def test_graft_on_card_equals_host_graft(cuda):
+    """`graft_graph` on the card (beam search, nearest new rows a block at
+    a time, prune) against the host graft on the integer grid: the same
+    graph, bit for bit."""
+    from repro_torch.ann import graph
+
+    v, bm, u = _grid_set(2, n=3000)
+    old = graph.build_graph(v[:2500], bm[:2500], u, r=16, seed=2, n_cand=40)
+    o2n = np.arange(2500, dtype=np.int64)
+    o2n[::7] = -1
+    keep = np.nonzero(o2n >= 0)[0]
+    o2n[keep] = np.arange(keep.size)
+    nv = np.concatenate([v[keep], v[2500:]])
+    nbm = np.concatenate([bm[keep], bm[2500:]])
+    new_rows = np.arange(keep.size, nv.shape[0])
+    host = graph.graft_graph(old, nv, nbm, u, o2n, new_rows, r=16, seed=2,
+                             device="cpu")
+    card = graph.graft_graph(old, nv, nbm, u, o2n, new_rows, r=16, seed=2,
+                             device=cuda)
+    np.testing.assert_array_equal(card.neighbors, host.neighbors)
+    assert card.medoid == host.medoid
+    np.testing.assert_array_equal(card.label_entry, host.label_entry)
+
+
+def test_sharded_live_on_card_equals_cpu(cuda):
+    """`ShardedLiveIndex` over 3 shards on the card (each shard's fused
+    read with the chunk pruner, one shard's overfetch past 128, the
+    `merge_topk` fold) against the port on the CPU on the integer grid:
+    ids and distance bits equal, before and after `compact()`."""
+    from repro_torch.ann.dataset import ANNDataset
+    from repro_torch.ann.index import QueryBatch
+    from repro_torch.ann.live import ShardedLiveIndex
+
+    v, bm, u = _grid_set(4, n=2400, d=24)
+    ds = ANNDataset.from_packed("grid", v[:2000], bm[:2000], u)
+    rng = np.random.default_rng(5)
+    qv = (rng.integers(-6, 7, (40, 24)) / 4.0).astype(np.float32)
+    qb = bm[rng.integers(0, 2400, 40)]
+    handles = [ShardedLiveIndex(ds, 3, device=dev, delta_chunk=32,
+                                delta_prune_min_rows=64)
+               for dev in (cuda, "cpu")]
+    try:
+        for live in handles:
+            ids = live.upsert(v[2000:], bm[2000:])
+            live.delete(np.concatenate([np.arange(0, 300), ids[::8]]))
+        for gen in (0, 1):
+            for pred in (0, 1, 2):
+                for k in (10, 40):
+                    b = QueryBatch(qv, qb, pred, k)
+                    got, want = (h.search(b, "prefilter") for h in handles)
+                    np.testing.assert_array_equal(got.ids, want.ids)
+                    np.testing.assert_array_equal(
+                        got.distances.view(np.int32),
+                        want.distances.view(np.int32))
+            if not gen:
+                assert handles[0].stats()["shards"][0]["delta_prune"][
+                    "calls"] > 0
+                for live in handles:
+                    live.compact()
+                np.testing.assert_array_equal(handles[0].last_remap(),
+                                              handles[1].last_remap())
+    finally:
+        for live in handles:
+            live.close()

@@ -16,6 +16,7 @@ from repro.ann import graph as jgraph
 from repro.ann.index import QueryBatch as JQB
 from repro.ann.live import LiveFilteredIndex as JLive
 from repro_torch.ann import graph as tgraph
+from repro_torch.ann.dataset import ANNDataset
 from repro_torch.ann.index import QueryBatch as TQB
 from repro_torch.ann.live import LiveFilteredIndex
 from repro_torch.ann.predicates import Predicate
@@ -46,6 +47,33 @@ def grid_set(seed: int, n: int = 700, d: int = 16, universe: int = 40):
         for lab in rng.choice(universe, rng.integers(1, 4), replace=False):
             bm[i, lab >> 5] |= np.uint32(1) << np.uint32(lab & 31)
     return v, bm, universe
+
+
+def graft_edges_host(pool_ids, pool_d, new_rows, vectors, norms,
+                     n_cand: int, alpha: float, keep_n: int) -> np.ndarray:
+    """The graft's new-row edges as the JAX package's `graft_graph` makes
+    them on the host: each row's beam pool plus its nearest other new
+    rows (from the [B, B] score matrix), the `n_cand` nearest of both
+    (stable), itself dropped, then the occlusion prune."""
+    b = new_rows.size
+    pool_d = pool_d.astype(np.float32)
+    if b > 1:
+        nv = vectors[new_rows]
+        dn = norms[new_rows][None, :] - 2.0 * (nv @ nv.T)
+        np.fill_diagonal(dn, np.inf)
+        t = min(16, b - 1)
+        nn_idx = np.argsort(dn, axis=1, kind="stable")[:, :t]
+        pool_ids = np.concatenate(
+            [pool_ids, new_rows[nn_idx].astype(np.int32)], axis=1)
+        pool_d = np.concatenate(
+            [pool_d, np.take_along_axis(dn, nn_idx, axis=1)
+             .astype(np.float32)], axis=1)
+    merge = np.argsort(pool_d, axis=1, kind="stable")[:, :n_cand]
+    cid = np.take_along_axis(pool_ids, merge, axis=1)
+    cdist = np.take_along_axis(pool_d, merge, axis=1)
+    cid = np.where(cid == new_rows[:, None], -1, cid)
+    cdist = np.where(cid < 0, np.inf, cdist)
+    return jgraph.occlusion_prune(cid, cdist, vectors, norms, alpha, keep_n)
 
 
 def same_graph(a, b):
@@ -150,7 +178,7 @@ def test_graft_identity_remap_reproduces_graph(tds):
                              seed=17)
     got = tgraph.graft_graph(old, tds.vectors, tds.bitmaps, tds.universe,
                              np.arange(tds.n), np.zeros(0, np.int64),
-                             seed=17)
+                             seed=17, device="cpu")
     same_graph(got, old)
 
 
@@ -171,8 +199,67 @@ def test_graft_with_deletes_and_new_rows_matches_reference(tiny_ds):
     o2n[keep] = np.arange(keep.size)
     new_rows = np.arange(keep.size, keep.size + add)
     want = jgraph.graft_graph(old, nv, nbm, u, o2n, new_rows, seed=17)
-    got = tgraph.graft_graph(old, nv, nbm, u, o2n, new_rows, seed=17)
+    got = tgraph.graft_graph(old, nv, nbm, u, o2n, new_rows, seed=17,
+                             device="cpu")
     same_graph(got, want)
+
+
+def test_fvamana_and_graft_default_to_the_card(tds):
+    """`FVamana.build`, `FVamana.graft_index` and `graft_graph` default to
+    the card like every other entry point; with `device="cpu"` they give
+    the graphs they gave before the default moved: the host build, and
+    the reference's graft (the test above holds it so)."""
+    import inspect
+
+    from repro_torch.ann.methods.fvamana import FVamana
+
+    for fn in (FVamana.build, FVamana.graft_index, tgraph.graft_graph):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    m = FVamana()
+    old = m.build(tds, {"r": 32}, device="cpu")
+    same_graph(old, tgraph.build_graph(tds.vectors, tds.bitmaps,
+                                       tds.universe, r=32, seed=17))
+    keep = np.arange(20, tds.n)
+    o2n = np.full(tds.n, -1, np.int64)
+    o2n[keep] = np.arange(keep.size)
+    nv = np.concatenate([tds.vectors[keep], tds.vectors[:10] + 0.1])
+    nbm = np.concatenate([tds.bitmaps[keep], tds.bitmaps[:10]])
+    new_ds = ANNDataset.from_packed("g", nv.astype(np.float32), nbm,
+                                    tds.universe)
+    new_rows = np.arange(keep.size, new_ds.n)
+    got = m.graft_index(new_ds, old, tds, o2n, new_rows, {"r": 32},
+                        device="cpu")
+    same_graph(got, tgraph.graft_graph(old, new_ds.vectors, new_ds.bitmaps,
+                                       tds.universe, o2n, new_rows, r=32,
+                                       seed=17, device="cpu"))
+
+
+@pytest.mark.parametrize("n_new,chunk", [(90, 16), (90, 2048), (1, 16)])
+def test_graft_edges_on_tensors_equal_host(monkeypatch, n_new, chunk):
+    """The graft's device step (`_graft_edges_torch`, run here on CPU
+    tensors, a block of `chunk` new rows at a time) gives the reference's
+    host step's edges (`graft_edges_host`) bit for bit on the integer
+    grid: the nearest new rows without the [B, B] matrix, the stable
+    merge, the prune."""
+    v, bm, u = grid_set(6, n=500)
+    g = tgraph.build_graph(v, bm, u, r=16, seed=6, n_cand=40)
+    norms = (v ** 2).sum(1).astype(np.float32)
+    new_rows = np.sort(np.random.default_rng(9).choice(v.shape[0], n_new,
+                                                      replace=False))
+    seeds = np.full((n_new, 4), -1, np.int32)
+    seeds[:, 0] = g.medoid
+    pool_ids, pool_d = tgraph.beam_search(
+        torch.from_numpy(v[new_rows]), torch.from_numpy(seeds),
+        torch.from_numpy(g.neighbors), torch.from_numpy(v),
+        torch.from_numpy(norms), l_search=40, iters=20)
+    want = graft_edges_host(pool_ids.numpy(), pool_d.numpy(), new_rows, v,
+                            norms, 40, 1.2, 14)
+    monkeypatch.setattr(tgraph, "ROW_CHUNK", chunk)
+    got = tgraph._graft_edges_torch(pool_ids, pool_d,
+                                    torch.from_numpy(new_rows),
+                                    torch.from_numpy(v),
+                                    torch.from_numpy(norms), 40, 1.2, 14)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_identity_graft_compaction_equals_fresh_build(tds, tiny_queries):
@@ -189,7 +276,8 @@ def test_identity_graft_compaction_equals_fresh_build(tds, tiny_queries):
         after = dict(live._base_fx._indexes)
         assert set(after) == set(before)
         for (m_name, bp), idx in after.items():
-            fresh = default_registry().get(m_name).build(live.ds, dict(bp))
+            fresh = default_registry().get(m_name).build(
+                live.ds, dict(bp), device="cpu")
             same_graph(idx, fresh)
 
 

@@ -37,6 +37,9 @@ def test_port_imports_with_jax_and_reference_blocked():
         "sys.modules['repro'] = None",
         f"for name in {_module_names()!r}:",
         "    importlib.import_module(name)",
+        "from repro_torch.ann.live import ShardedLiveIndex, "
+        "ShardedLiveSnapshot",
+        "from repro_torch.ann.service import ShardedRouterService",
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))",
         "               for m in sys.modules if sys.modules[m] is not None)",
         "print('ok')",
