@@ -69,7 +69,9 @@ not 0):
              sieve rebuilt, each graft or build timed; the compacted
              index equal to a fresh `FilteredIndex` over its dataset,
              `last_remap` translating ids). Then profiles and times of the
-             live path and kernels.
+             live path and kernels; `merge_topk` beside `torch.topk` on the
+             staged read's [2, 256, KK] lists and on the multi-block entry
+             point's [NB, 256, 10] block lists (`live.merge_topk.yardstick`).
 9. any k   — slice 4: the select of the k > 128 paths, `merge_topk`,
              `fused_live` and `masked_topk_blocks` past k = 128 and the
              register-blocked tile scan (odd and wide D, bf16, W = 1 and
@@ -110,6 +112,41 @@ not 0):
              base overfetch, its first 64-query chunk at its own KB,
              through `masked_topk_large` past k = 128), then `merge_topk`
              and `fused_live` timed there.
+11. store  — durable storage, in a directory under `build/` removed at
+             the end (its bytes printed): (a) a `LiveFilteredIndex(ds,
+             delta_chunk=512)` on the card adopting phase 5's five
+             candidates' indexes (`adopt_index`, nothing built twice),
+             `IndexStore.create` linking `router_all`; phase 8's writes
+             through the store's handle, logged with `sync_every=1`: the
+             exact reads after the upserts (A) and after the deletes (B),
+             B bit-identical to phase 8's fused answers, routed with phase
+             8's decisions and answers; `close()` and `IndexStore.open` (the exact and
+             routed reads bit-identical, the same decisions, 0 method
+             builds under `method_seconds`); the WAL cut mid-way through
+             its last record (the deletes) and reopened (truncated to the
+             upserts' record, the reads equal A, their `fused_live` and
+             base top-k held to the plain versions), the deletes
+             re-issued;
+             `checkpoint()`, close and open (only the checkpoint's seeded
+             records replayed, the 128 delta-chunk indexes adopted, none
+             built, reads equal B); a byte inside the WAL's first record
+             damaged, and open refused the mid-log corruption without
+             truncating; a byte of a linked router copy's `table.json`
+             changed, and open refused. (b)
+             `IndexStore.create` over `ShardedLiveIndex(ds, 4)` with the
+             IVF pair built on each shard; the same writes, a
+             `compact_async()` barrier logged between the upserts and the
+             deletes (the deletes race the compaction, before its swap);
+             close and open (the replay re-runs the compaction: the IVF
+             pair rebuilt on the 4 new shards and nothing else, reads
+             bit-identical to the handle's before the close, shard 0's
+             overfetch and every `merge_topk` fold held to the plain
+             versions); then
+             `checkpoint()` and open (every per-shard index adopted, 0
+             builds). One line a step: seconds, the adoption of each
+             index file, WAL bytes and records, segment bytes, peak device
+             memory, and the launch counts over the recovered reads, set
+             to 0 just before each and read just after.
 
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON line and `{"ok": true, "device": {...}}`. Without a CUDA device the
@@ -122,8 +159,10 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -136,7 +175,9 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.ann import bench  # noqa: E402
-from repro_torch.ann.dataset import ground_truth_topk, recall_at_k  # noqa: E402
+from repro_torch.ann import live as live_mod  # noqa: E402
+from repro_torch.ann.dataset import (ANNDataset,  # noqa: E402
+                                     ground_truth_topk, recall_at_k)
 from repro_torch.ann.engine import DEFAULT_QCHUNK, to_device  # noqa: E402
 from repro_torch.ann.index import FilteredIndex, QueryBatch  # noqa: E402
 from repro_torch.ann.live import (LiveFilteredIndex,  # noqa: E402
@@ -150,6 +191,7 @@ from repro_torch.ann.service import (AsyncBatchQueue,  # noqa: E402
                                      RouterService, ShardedRouterService)
 from repro_torch.ann.sharded import (ShardedFilteredIndex,  # noqa: E402
                                      stack_candidates)
+from repro_torch.ann.store import IndexStore, WriteAheadLog  # noqa: E402
 from repro_torch.core import features as F  # noqa: E402
 from repro_torch.core.router import MLRouter  # noqa: E402
 from repro_torch.data.ann_synth import (VALIDATION_SPECS,  # noqa: E402
@@ -1556,11 +1598,12 @@ def hold_live_against_ground_truth(rows, batch, ids, n_gt: int) -> int:
     return same
 
 
-def live_writes(live, ds, seed: int = 23) -> dict:
+def live_writes(live, ds, seed: int = 23, between=None) -> dict:
     """The live path's writes: LIVE_UPSERTS base rows picked by a seeded
     generator (in row order, as a catalogue re-ingested group by group),
     + 0.01, with their bitmaps; then LIVE_BASE_DELETES base ids and
-    LIVE_DELTA_DELETES delta ids deleted. Returns what was written."""
+    LIVE_DELTA_DELETES delta ids deleted. `between()`, if given, runs
+    after the upserts and before the deletes. Returns what was written."""
     rng = np.random.default_rng(seed)
     pick = np.sort(rng.choice(ds.n, LIVE_UPSERTS, replace=False))
     ids = live.upsert(ds.vectors[pick] + np.float32(0.01), ds.bitmaps[pick])
@@ -1568,6 +1611,8 @@ def live_writes(live, ds, seed: int = 23) -> dict:
                                       replace=False),
                            ids[rng.choice(LIVE_UPSERTS, LIVE_DELTA_DELETES,
                                           replace=False)]])
+    if between is not None:
+        between()
     if live.delete(dead) != dead.size:
         raise AssertionError("live deletes were not all fresh")
     return {"pick": pick, "ids": ids, "dead": dead}
@@ -1822,6 +1867,72 @@ def time_live_kernels(live, batches: dict, dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def captured_merges():
+    """Record the (ids, dists, k) of every `ops.merge_topk` call while the
+    block runs (the staged live read's fold through `merge_candidates`,
+    the multi-block entry point's fold of its block lists)."""
+    calls = []
+    orig = ops.merge_topk
+
+    def capture(ids, dists, *, k=None):
+        calls.append((ids, dists, k))
+        return orig(ids, dists, k=k)
+    ops.merge_topk = capture
+    try:
+        yield calls
+    finally:
+        ops.merge_topk = orig
+
+
+def time_merge_yardsticks(live, fx, batches: dict, dev) -> dict:
+    """`merge_topk` beside one library call on the same inputs at its two
+    wide shapes: the staged live read's fold of the base overfetch and the
+    delta top-k ([2, 256, KK] lists with tombstoned slots, unordered), and
+    the multi-block entry point's fold of its [NB, 256, 10] block lists.
+    The library call is `torch.topk` over the query-major [256, S·KK]
+    copy, which finds the same set with no tie order. Returns per-shape
+    sums over the three predicates."""
+    dd = fx.device
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+    out = {shape: dict(ms=0.0, library_ms=0.0, bound_s=0.0)
+           for shape in ("staged", "multiblock")}
+    for pred, batch in batches.items():
+        live.fused = False
+        try:
+            with captured_merges() as staged:
+                live.search(batch, "prefilter")
+        finally:
+            live.fused = True
+        with captured_merges() as blocks:
+            ops.masked_topk_multiblock(
+                to_device(batch.vectors, dev), to_device(batch.bitmaps, dev),
+                dd.vectors, dd.norms, dd.bitmaps, pred=pred, k=batch.k)
+        line = {}
+        for shape, (ids, dists, k) in (("staged", staged[-1]),
+                                       ("multiblock", blocks[-1])):
+            dt = dists.to(torch.float32).contiguous()
+            it = ids.to(torch.int32).contiguous()
+            s_, q_, kk = dt.shape
+            flat = dt.transpose(0, 1).reshape(q_, s_ * kk).contiguous()
+            ms = time_ms(lambda: mk.merge_topk_accum(dt, it, k=k), 20, flush)
+            lms = time_ms(lambda: torch.topk(flat, k, dim=1, largest=False),
+                          20, flush)
+            bound = merge_topk_bound(s_, q_, kk, k)
+            o = out[shape]
+            o["ms"] += ms
+            o["library_ms"] += lms
+            o["bound_s"] += max(bound)
+            line.update({f"{shape}_shape": [s_, q_, kk], f"{shape}_k": k,
+                         f"{shape}_merge_topk_ms": ms,
+                         f"{shape}_torch_topk_ms": lms,
+                         f"{shape}_bound_ms": max(bound) * 1e3})
+        emit("live.merge_topk.yardstick", pred=PRED_NAMES[pred],
+             staged_merges=len(staged), **line)
+    del flush
+    return out
+
+
 def anyk_batches(batches: dict) -> dict:
     return {p: QueryBatch(b.vectors, b.bitmaps, b.pred, ANY_K)
             for p, b in batches.items()}
@@ -1901,10 +2012,12 @@ def single_live_answers(live, svc, routed: dict, fused: dict,
     handle `live` after phase 8's writes and its service `svc`: the fused
     answers `fused` of `run_live_reads`, each routed batch's decisions, the
     exact truths `truth` and the live rows in id order (the host exact
-    answer's input). The global ids of both handles agree: base rows keep
-    their row ids, upserts number on in insertion order."""
+    answer's input); and, for phase 11, each routed batch's answer. The
+    global ids of both handles agree: base rows keep their row ids,
+    upserts number on in insertion order."""
     return {"fused": fused, "truth": truth, "rows": live_rows(live),
-            "decisions": {p: svc.route(b) for p, b in routed.items()}}
+            "decisions": {p: svc.route(b) for p, b in routed.items()},
+            "routed": {p: svc.search(b) for p, b in routed.items()}}
 
 
 def sharded_live_answers(live4, ds, svc4, batches: dict) -> dict:
@@ -2139,6 +2252,521 @@ def time_sharded_live_kernels(live4, batches: dict, dev) -> dict:
              base_scan_max_abs_err=serr, tol=tol)
     del flush
     out["max_abs_err"] = errs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: durable storage
+# ---------------------------------------------------------------------------
+
+# The sharded store's methods: the IVF pair, built on each shard.
+IVF_PAIR = ("postfilter", "ivf_gamma")
+
+
+def tree_bytes(path: str) -> int:
+    """Bytes of every file under `path` (0 if it does not exist)."""
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def wal_records(store) -> int:
+    """The committed WAL's complete records, read without repairing it."""
+    m = store.manifest
+    return len(WriteAheadLog.replay(os.path.join(store.path, m["wal"]),
+                                    dim=m["dim"], width=m["width"],
+                                    truncate=False))
+
+
+def store_files(store) -> dict:
+    """The committed generation on disk: the segment directory (vectors,
+    bitmaps, groups, keys, index files), its index and delta-chunk files
+    apart, and the WAL (bytes and records)."""
+    seg = os.path.join(store.path, store.manifest["segment"])
+    return {"segment_bytes": tree_bytes(seg),
+            "index_bytes": tree_bytes(os.path.join(seg, "indexes")),
+            "delta_chunk_bytes": tree_bytes(os.path.join(seg,
+                                                         "delta_chunks")),
+            "wal_bytes": os.path.getsize(os.path.join(
+                store.path, store.manifest["wal"])),
+            "wal_records": wal_records(store)}
+
+
+@contextlib.contextmanager
+def store_steps():
+    """Time the steps of `IndexStore.open` while the block runs: the
+    segment's load, each persisted index file's adoption, the WAL's read
+    and the replay of its records, the delta-chunk adoption; and count
+    the delta-chunk index builds (`live.build_chunk_index`). Yields the
+    dict it fills."""
+    out = {"load_segment_s": 0.0, "adopt": [], "wal_read_s": 0.0,
+           "replay_s": 0.0, "adopt_chunks_s": 0.0, "chunk_builds": 0}
+    saved = {"load": ANNDataset.__dict__["load_segment"],
+             "read": WriteAheadLog.__dict__["replay"],
+             "file": IndexStore.__dict__["_adopt_index_file"],
+             "apply": IndexStore._apply_records,
+             "chunks": IndexStore._adopt_chunk_indexes,
+             "build": live_mod.build_chunk_index}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                out[key] += time.perf_counter() - t0
+        return call
+
+    def adopt(fx, seg_dir, fname, method, bp_t):
+        t0 = time.perf_counter()
+        saved["file"].__func__(fx, seg_dir, fname, method, bp_t)
+        out["adopt"].append({
+            "method": method.name, "file": fname,
+            "bytes": os.path.getsize(os.path.join(seg_dir, fname)),
+            "seconds": time.perf_counter() - t0})
+
+    def build(*a, **kw):
+        out["chunk_builds"] += 1
+        return saved["build"](*a, **kw)
+    ANNDataset.load_segment = staticmethod(
+        timed(saved["load"].__func__, "load_segment_s"))
+    WriteAheadLog.replay = staticmethod(
+        timed(saved["read"].__func__, "wal_read_s"))
+    IndexStore._adopt_index_file = staticmethod(adopt)
+    IndexStore._apply_records = timed(saved["apply"], "replay_s")
+    IndexStore._adopt_chunk_indexes = timed(saved["chunks"],
+                                            "adopt_chunks_s")
+    live_mod.build_chunk_index = build
+    try:
+        yield out
+    finally:
+        ANNDataset.load_segment = saved["load"]
+        WriteAheadLog.replay = saved["read"]
+        IndexStore._adopt_index_file = saved["file"]
+        IndexStore._apply_records = saved["apply"]
+        IndexStore._adopt_chunk_indexes = saved["chunks"]
+        live_mod.build_chunk_index = saved["build"]
+
+
+def open_store(path: str):
+    """`IndexStore.open(path)` on the card, timed, under `method_seconds`
+    and `store_steps`. Returns (the store, a line's fields, the method
+    builds the open ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with method_seconds() as calls, store_steps() as steps:
+        t0 = time.perf_counter()
+        store = IndexStore.open(path)
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+    builds = [c for c in calls if c["step"] == "build"]
+    fields = {"open_s": open_s, **steps,
+              "adopt_s": sum(a["seconds"] for a in steps["adopt"]),
+              "replayed_records": store.stats()["replayed_records"],
+              "generation": store.index.generation,
+              "method_builds": len(builds),
+              "peak_device_mb_open": torch.cuda.max_memory_allocated() / 1e6}
+    return store, fields, builds
+
+
+def store_exact(index, batches: dict, want: dict | None, what: str) -> dict:
+    """Each exact batch read on a store's handle; ids, keys and distance
+    bits identical to `want` when given. Returns the answers."""
+    got = {}
+    for pred, batch in batches.items():
+        got[pred] = index.search(batch, "prefilter")
+        if want is not None and not same_bits(got[pred], want[pred]):
+            raise AssertionError(f"{what}: the read differs, "
+                                 f"{PRED_NAMES[pred]}")
+    return got
+
+
+def store_routed(store, ds, table_rows, routed: dict, decisions: dict,
+                 want: dict | None, what: str) -> dict:
+    """Each routed batch through `RouterService` over the store's handle
+    with the store's linked router (`load_router`, validated against its
+    version stamps) and the main path's table-B rows: the decisions
+    `decisions`, and the answers bit-identical to `want` when given.
+    Returns the answers."""
+    router = store.load_router()
+    for r in table_rows:
+        router.table.add(ds.name, r.pred, r.method, r.ps_id, r.mean_recall,
+                         r.qps)
+    svc = RouterService(store.index, router, t=0.9)
+    got = {}
+    for pred, batch in routed.items():
+        res = got[pred] = svc.search(batch)
+        if res.decisions != decisions[pred]:
+            raise AssertionError(f"{what}: routing decisions differ from "
+                                 f"phase 8's, {PRED_NAMES[pred]}")
+        if want is not None and not same_bits(res, want[pred]):
+            raise AssertionError(f"{what}: the routed read differs, "
+                                 f"{PRED_NAMES[pred]}")
+    return got
+
+
+def counted_reads(total: dict, reads) -> tuple[dict, float]:
+    """Run `reads()` with the launch counts set to 0 just before and read
+    just after; adds them to `total`. Returns (the counts, seconds)."""
+    t0 = time.perf_counter()
+    reset_launches()
+    reads()
+    counts = read_launches()
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+    return counts, time.perf_counter() - t0
+
+
+def hold_store_kernels(live, batches: dict) -> dict:
+    """The kernels of a recovered handle's exact reads held against their
+    plain versions on that handle's own inputs, as phases 8 and 10 hold
+    theirs, with the tolerance of `check_live_path_kernels`: on the single
+    handle, or shard 0 of a sharded one, `fused_live` on the fused read's
+    inputs (when its delta holds rows) through `hold_fused_to_plain`, and
+    the base overfetch's first 64-query chunk at the read's own KB
+    (`masked_topk` up to MAX_K, `masked_topk_large` past it) through
+    `hold_to_plain`; and every `merge_topk` fold of the whole read (each
+    shard's staged fold, the cross-shard fold) bit for bit against
+    `merge_topk_plain`. Its launches are made outside the counted reads.
+    Returns the largest error of each kernel held, each batch's KB and
+    the folds held."""
+    shard = live.shards[0] if isinstance(live, ShardedLiveIndex) else live
+    dd = shard.device
+    dev = shard.torch_device
+    d = dd.vectors.shape[1]
+    prefilter = get_method("prefilter")
+    errs, kbs, folds = {}, {}, 0
+    for pred, batch in batches.items():
+        with shard.snapshot() as snap:
+            dead = int(snap.tombstones[: snap.base_n].sum())
+            b_ids, _ = shard._run_base(
+                prefilter, prefilter.param_settings()[0], batch, snap, dead)
+            fused = shard.fused and snap.delta_rows > 0
+        kb = kbs[PRED_NAMES[pred]] = b_ids.shape[1]
+        if fused:
+            args, kw, _ = live_kernel_inputs(shard, batch)
+            qv, qb, dvec = args[0], args[1], args[4]
+        else:
+            qv = to_device(batch.vectors, dev)
+            qb = to_device(batch.bitmaps, dev)
+            dvec = dd.vectors[:0]
+        vn = max(float(dd.norms.max()),
+                 float((dvec ** 2).sum(1).max()) if dvec.shape[0] else 0.0
+                 ) ** 0.5
+        qn = float(qv.norm(dim=1).max())
+        tol = 2 * d * 2.0 ** -24 * (vn * vn + 2 * qn * vn)
+        if fused:
+            gd, gi = mk.fused_live_accum(*args, **kw, pred=pred, k=batch.k)
+            pd, pi = mk.fused_live_plain(*args, **kw, pred=pred, k=batch.k)
+            errs["fused_live"] = max(errs.get("fused_live", 0.0),
+                                     hold_fused_to_plain(pred, args, kw, gd,
+                                                         gi, pd, pi, tol))
+        base = (qv[:DEFAULT_QCHUNK], qb[:DEFAULT_QCHUNK], dd.vectors,
+                dd.norms, dd.bitmaps)
+        large = kb > mk.MAX_K
+        scan = "masked_topk_large" if large else "masked_topk"
+        gd, gi = (mk.masked_topk_large if large else mk.masked_topk_accum)(
+            *base, pred=pred, k=kb)
+        pd, pi = mk.masked_topk_plain(*base, pred=pred, k=kb)
+        errs[scan] = max(errs.get(scan, 0.0),
+                         hold_to_plain(scan, pred, base, gd, gi, pd, pi, tol))
+        with captured_merges() as merges:
+            live.search(batch, "prefilter")
+        for ids, dists, k in merges:
+            dt = dists.to(torch.float32).contiguous()
+            it = ids.to(torch.int32).contiguous()
+            k = it.shape[-1] if k is None else k
+            gd, gi = mk.merge_topk_accum(dt, it, k=k)
+            pd, pi = mk.merge_topk_plain(dt, it, k=k)
+            torch.cuda.synchronize()
+            if not (torch.equal(gi, pi) and torch.equal(
+                    gd.view(torch.int32), pd.view(torch.int32))):
+                raise AssertionError(f"merge_topk differs from its plain "
+                                     f"version on a recovered read's "
+                                     f"{list(dt.shape)} fold, "
+                                     f"{PRED_NAMES[pred]}")
+            errs["merge_topk"] = 0.0
+        folds += len(merges)
+    return {"max_abs_err": errs, "kb": kbs, "merge_folds_held": folds}
+
+
+def flip_table_digit(router_dir: str) -> None:
+    """Change one digit of the first recall in the router's table.json:
+    the same format versions, other content."""
+    path = os.path.join(router_dir, "table.json")
+    with open(path) as f:
+        text = f.read()
+    at = text.index('"recall": ') + len('"recall": ') + 2
+    with open(path, "w") as f:
+        f.write(text[:at] + ("1" if text[at] != "1" else "2")
+                + text[at + 1:])
+
+
+def run_single_store(root: str, fx, ds, table_rows, phase8: dict,
+                     batches: dict, routed: dict, launches: dict) -> dict:
+    """Phase 11's single store, in `root`: a `LiveFilteredIndex(ds,
+    delta_chunk=LIVE_CHUNK)` on the card adopting phase 5's built indexes,
+    `IndexStore.create` linking `router_all`; phase 8's writes through
+    the WAL (A: the exact reads after the upserts, B: after the deletes,
+    equal to phase 8's fused answers `phase8["fused"]`, routed with its
+    decisions to its answers `phase8["routed"]`); then close/open (reads
+    equal B, 0 builds), a torn WAL tail (reads equal A, their kernels
+    held to the plain versions; the deletes re-issued), `checkpoint()` and
+    open (the seeded records replayed, the 128 delta-chunk indexes adopted
+    and none built), a byte of the WAL's first record damaged (open
+    refuses the mid-log corruption and leaves the file), and a router
+    artifact edited under the store (open refuses it). Recovered reads add
+    their launch counts to `launches`. Returns a summary."""
+    out = {}
+    path = os.path.join(root, "single")
+    router_dir = os.path.join(ASSETS, "router_all")
+    t0 = time.perf_counter()
+    live = LiveFilteredIndex(ds, delta_chunk=LIVE_CHUNK)
+    for m_name, bp in fx.built_keys():
+        live._base_fx.adopt_index(m_name, bp, fx.get_index(m_name, bp))
+    live.device
+    torch.cuda.synchronize()
+    handle_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with method_seconds() as calls:
+        store = IndexStore.create(path, live, router_dir=router_dir)
+    out["create_s"] = time.perf_counter() - t0
+    if calls:
+        raise AssertionError("IndexStore.create built or grafted an index")
+    emit("store.create", handle_s=handle_s, create_s=out["create_s"],
+         adopted_from_phase5=[list(k) for k in live.built_keys()],
+         persisted=[[b[0], b[2]] for b in store.manifest["built"]],
+         peak_device_mb=torch.cuda.max_memory_allocated() / 1e6,
+         **store_files(store))
+
+    wal_path = os.path.join(path, store.manifest["wal"])
+    answers = {}
+
+    def after_upserts():
+        answers["wal_bytes"] = os.path.getsize(wal_path)
+        answers["A"] = store_exact(store.index, batches, None, "")
+    t0 = time.perf_counter()
+    w = live_writes(store.index, ds, between=after_upserts)
+    writes_s = time.perf_counter() - t0
+    want_a = answers["A"]
+    want_b = store_exact(store.index, batches, phase8["fused"],
+                         "the store's handle against phase 8's fused read")
+    routed_b = store_routed(store, ds, table_rows, routed,
+                            phase8["decisions"], phase8["routed"],
+                            "the store's handle")
+    emit("store.writes", upserts=LIVE_UPSERTS, deletes=int(w["dead"].size),
+         sync_every=1, writes_s=writes_s,
+         same_as_phase8_fused="bit-identical", same_decisions=True,
+         routed_same_as_phase8="bit-identical",
+         **store_files(store))
+    store.close()
+
+    store, fields, _ = open_store(path)
+    if fields["method_builds"] or fields["replayed_records"] != 2:
+        raise AssertionError(f"open: {fields['method_builds']} builds, "
+                             f"{fields['replayed_records']} records")
+
+    def recovered():
+        store_exact(store.index, batches, want_b, "recovered exact")
+        store_routed(store, ds, table_rows, routed, phase8["decisions"],
+                     routed_b, "recovered routed")
+    counts, reads_s = counted_reads(launches, recovered)
+    out["open_s"] = fields["open_s"]
+    emit("store.open", **fields, reads_s=reads_s, launches=counts,
+         same_as_before_close="bit-identical", same_decisions=True,
+         peak_device_mb=torch.cuda.max_memory_allocated() / 1e6)
+    store.close()
+
+    # a crash mid-way through the last record (the deletes)
+    size = os.path.getsize(wal_path)
+    last = size - answers["wal_bytes"]
+    with open(wal_path, "r+b") as f:
+        f.truncate(size - last // 2)
+    store, fields, _ = open_store(path)
+    if (fields["method_builds"] or fields["replayed_records"] != 1
+            or os.path.getsize(wal_path) != answers["wal_bytes"]):
+        raise AssertionError("the torn tail was not truncated to the "
+                             "upserts' record")
+    counts, reads_s = counted_reads(launches, lambda: store_exact(
+        store.index, batches, want_a, "torn-tail reopen"))
+    held = hold_store_kernels(store.index, batches)
+    out["max_abs_err"] = held["max_abs_err"]
+    if store.index.delete(w["dead"]) != w["dead"].size:
+        raise AssertionError("the re-issued deletes were not all fresh")
+    store_exact(store.index, batches, want_b, "deletes re-issued")
+    emit("store.torn_tail", cut_bytes=last - last // 2, record_bytes=last,
+         **fields, reads_s=reads_s, launches=counts, held_to_plain=held,
+         same_as_upserts_only="bit-identical", deletes_reissued=True,
+         **store_files(store))
+
+    chunks = store.index.stats()["delta_chunk_indexes"]
+    t0 = time.perf_counter()
+    store.checkpoint()
+    out["checkpoint_s"] = time.perf_counter() - t0
+    files = store_files(store)
+    seeds = files["wal_records"]
+    if len(store.manifest["delta_chunks"]["files"]) != chunks:
+        raise AssertionError("checkpoint did not persist every chunk index")
+    emit("store.checkpoint", checkpoint_s=out["checkpoint_s"],
+         delta_chunk_indexes=chunks, **files)
+    store.close()
+    store, fields, _ = open_store(path)
+    adopted = store.index.stats()["delta_chunk_indexes"]
+    if (fields["method_builds"] or fields["chunk_builds"]
+            or adopted != chunks or chunks != LIVE_UPSERTS // LIVE_CHUNK
+            or fields["replayed_records"] != seeds):
+        raise AssertionError(f"open after checkpoint: {fields}, {adopted} "
+                             f"chunk indexes of {chunks}")
+    counts, reads_s = counted_reads(launches, lambda: store_exact(
+        store.index, batches, want_b, "open after checkpoint"))
+    if store.index.stats()["delta_chunk_indexes"] != chunks:
+        raise AssertionError("a read rebuilt a delta-chunk index")
+    emit("store.open_checkpointed", **fields, delta_chunk_indexes=adopted,
+         reads_s=reads_s, launches=counts, same_as_before="bit-identical")
+
+    copy = os.path.join(root, "router_copy")
+    shutil.copytree(router_dir, copy)
+    store.link_router(copy)
+    store.close()
+
+    # a damaged byte inside the first record, valid records after it
+    wal_path = os.path.join(path, store.manifest["wal"])
+    size = os.path.getsize(wal_path)
+    at = 24 + 21 + 4 + 8               # the first record's second key
+    with open(wal_path, "r+b") as f:
+        f.seek(at)
+        byte = f.read(1)
+        f.seek(at)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    t0 = time.perf_counter()
+    try:
+        IndexStore.open(path).close()
+    except ValueError as e:
+        if "mid-log corruption" not in str(e):
+            raise
+        refused = str(e).split(":")[0]
+    else:
+        raise AssertionError("a WAL with a damaged first record opened")
+    refuse_s = time.perf_counter() - t0
+    if os.path.getsize(wal_path) != size:
+        raise AssertionError("the refused WAL was truncated")
+    with open(wal_path, "r+b") as f:
+        f.seek(at)
+        f.write(byte)
+    emit("store.midlog_corruption", refused=refused, refuse_s=refuse_s,
+         damaged_byte=at, wal_bytes=size, wal_untouched=True)
+    flip_table_digit(copy)
+    try:
+        IndexStore.open(path).close()
+    except ValueError as e:
+        if "content changed" not in str(e):
+            raise
+        refused = str(e).split(";")[0]
+    else:
+        raise AssertionError("a store opened over an edited router artifact")
+    out["dir_bytes"] = tree_bytes(root)
+    emit("store.router_swap", refused=refused, dir_bytes=out["dir_bytes"])
+    shutil.rmtree(path)
+    return out
+
+
+def run_sharded_store(root: str, ds, batches: dict, launches: dict) -> dict:
+    """Phase 11's sharded store, in `root`: `ShardedLiveIndex(ds, SHARDS,
+    delta_chunk=LIVE_CHUNK)` on the one card with the IVF pair built on
+    each shard, `IndexStore.create`; phase 8's writes with a
+    `compact_async()` barrier logged between the upserts and the deletes,
+    which race the compaction (logged at the old generation, before its
+    swap); close and open (the replay re-runs the compaction: only its
+    rebuilds on the new shards, none of the persisted files; reads
+    bit-identical to the handle's before the close, their kernels held to
+    the plain versions), then `checkpoint()` and open again (every
+    per-shard index adopted, 0 builds). Recovered reads add their launch
+    counts to `launches`. Returns a summary."""
+    out = {}
+    path = os.path.join(root, "sharded")
+    t0 = time.perf_counter()
+    live4 = ShardedLiveIndex(ds, SHARDS, delta_chunk=LIVE_CHUNK)
+    for shard in live4.shards:
+        shard.device
+    build = build_on([sh._base_fx for sh in live4.shards], IVF_PAIR)
+    handle_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with method_seconds() as calls:
+        store = IndexStore.create(path, live4)
+    out["create_s"] = time.perf_counter() - t0
+    if calls:
+        raise AssertionError("IndexStore.create built or grafted an index")
+    emit("store.sharded.create", shards=SHARDS, handle_s=handle_s,
+         build_s=build, create_s=out["create_s"],
+         persisted=[[b[0], b[2]] for b in store.manifest["built"]],
+         peak_device_mb=torch.cuda.max_memory_allocated() / 1e6,
+         **store_files(store))
+
+    wal_path = os.path.join(path, store.manifest["wal"])
+    index = store.index
+    state = {}
+
+    def barrier():
+        size = os.path.getsize(wal_path)
+        state["fut"] = index.compact_async()
+        deadline = time.perf_counter() + 300
+        while os.path.getsize(wal_path) == size:   # the barrier's record
+            if time.perf_counter() > deadline:
+                raise AssertionError("the compaction logged no barrier")
+            time.sleep(0.001)
+        index._lock.acquire()        # the deletes land before the swap
+        state["locked"] = True
+    t0 = time.perf_counter()
+    try:
+        live_writes(index, ds, between=barrier)
+    finally:
+        if state.get("locked"):
+            index._lock.release()
+    gen = state["fut"].result()
+    writes_s = time.perf_counter() - t0
+    want = store_exact(index, batches, None, "")
+    emit("store.sharded.writes", upserts=LIVE_UPSERTS,
+         deletes=LIVE_BASE_DELETES + LIVE_DELTA_DELETES,
+         deletes_raced_the_compaction=True, generation=gen,
+         writes_and_compaction_s=writes_s, **store_files(store))
+    store.close()
+
+    # the replayed compaction rebuilds the IVF pair on each new shard; the
+    # files of generation 0's shards are adopted, not rebuilt
+    store, fields, builds = open_store(path)
+    if (fields["method_builds"] != SHARDS * len(IVF_PAIR)
+            or fields["replayed_records"] != 3 or fields["generation"] != 1):
+        raise AssertionError(f"sharded open: {fields}")
+    counts, reads_s = counted_reads(launches, lambda: store_exact(
+        store.index, batches, want, "recovered sharded exact"))
+    held = hold_store_kernels(store.index, batches)
+    out["max_abs_err"] = held["max_abs_err"]
+    out["open_replay_s"] = fields["open_s"]
+    emit("store.sharded.open", **fields,
+         compaction_rebuilds=[[b["method"], b["seconds"]] for b in builds],
+         reads_s=reads_s, launches=counts, held_to_plain=held,
+         same_as_before_close="bit-identical")
+    t0 = time.perf_counter()
+    store.checkpoint()
+    out["checkpoint_s"] = time.perf_counter() - t0
+    emit("store.sharded.checkpoint", checkpoint_s=out["checkpoint_s"],
+         **store_files(store))
+    files = sum(len([f for f in b[2] if f]) for b in store.manifest["built"]
+                if isinstance(b[2], list))
+    store.close()
+    store, fields, _ = open_store(path)
+    if (fields["method_builds"] or len(fields["adopt"]) != files
+            or files < SHARDS * len(IVF_PAIR) or fields["generation"] != 1):
+        raise AssertionError(f"sharded open after checkpoint: {fields}")
+    counts, reads_s = counted_reads(launches, lambda: store_exact(
+        store.index, batches, want, "sharded open after checkpoint"))
+    out["open_s"] = fields["open_s"]
+    emit("store.sharded.open_checkpointed", **fields, reads_s=reads_s,
+         launches=counts, same_as_before_close="bit-identical")
+    store.close()
+    out["dir_bytes"] = tree_bytes(root)
+    shutil.rmtree(path)
     return out
 
 
@@ -2385,6 +3013,10 @@ def main() -> int:
     t0 = time.perf_counter()
     times.update(time_live_kernels(live, exact_batches, dev))
     emit("live.kernels.timing", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    yard = time_merge_yardsticks(live, fx, exact_batches, dev)
+    emit("live.merge_topk.yardstick_timing",
+         seconds=time.perf_counter() - t0, sums=yard)
 
     # slice 4, any k: the kernels against their plain versions on grids,
     # then k = ANY_K through the sharded, live and multi-block entry points
@@ -2454,6 +3086,7 @@ def main() -> int:
         if launches_sl[name] == 0:
             raise AssertionError(f"the sharded live path never launched "
                                  f"{name}")
+    phase8 = {k: single_live[k] for k in ("fused", "decisions", "routed")}
     del single_live
     profile_phase("sharded_live_exact",
                   lambda: [live4.search(b, "prefilter")
@@ -2469,6 +3102,35 @@ def main() -> int:
     emit("sharded_live.compaction_path", seconds=time.perf_counter() - t0,
          launches=read_launches())
     live4.close()
+
+    # phase 11, durable storage: the single and the sharded store in a
+    # directory under build/, removed at the end; the recovered reads'
+    # launch counts set to 0 just before each and read just after
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    store_root = tempfile.mkdtemp(prefix="store-",
+                                  dir=os.path.join(ROOT, "build"))
+    launches_store = {}
+    try:
+        single = run_single_store(store_root, fx, ds, rows, phase8,
+                                  exact_batches, routed, launches_store)
+        sharded4 = run_sharded_store(store_root, ds, exact_batches,
+                                     launches_store)
+    finally:
+        shutil.rmtree(store_root, ignore_errors=True)
+    store_errs = {}
+    for part in (single, sharded4):
+        for name, err in part.pop("max_abs_err").items():
+            store_errs[name] = max(store_errs.get(name, 0.0), err)
+    emit("store", seconds=time.perf_counter() - t0, launches=launches_store,
+         max_abs_err=store_errs,
+         dir_bytes_max=max(single["dir_bytes"], sharded4["dir_bytes"]),
+         single=single, sharded=sharded4)
+    for name in ("fused_live", "masked_topk_large", "selectivity",
+                 "merge_topk"):
+        if launches_store.get(name, 0) == 0:
+            raise AssertionError(f"the recovered stores' reads never "
+                                 f"launched {name}")
     launches_by_path = {"main": launches, "sharded": launches_sharded,
                         "queue": launches_queue, "multiblock": launches_mb,
                         "live": launches_live, "live_staged": launches_staged,
@@ -2521,7 +3183,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launch[name],
             "max_abs_err": max(errs[name],
-                               sl_times["max_abs_err"].get(name, 0.0)),
+                               sl_times["max_abs_err"].get(name, 0.0),
+                               store_errs.get(name, 0.0)),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_s"] * 1e3,
             "bound_by": ("operations" if t["ops_s"] >= t["bytes_s"]
@@ -2537,6 +3200,8 @@ def main() -> int:
                        sharded_live_bound_ms=sl_times[name]["bound_s"] * 1e3)
         if name in sl_times["max_abs_err"]:
             row["sharded_live_max_abs_err"] = sl_times["max_abs_err"][name]
+        if name in store_errs:
+            row["store_max_abs_err"] = store_errs[name]
         if name in ("masked_topk_large", "masked_topk_blocks"):
             row.update(k200_ms=t["k200_ms"],
                        k200_bound_ms=t["k200_bound_s"] * 1e3)

@@ -5,18 +5,72 @@ an identical label set are contiguous), which makes Equality selectivity
 an O(1) group lookup — the paper's "precomputed set-count table". The
 arrays are numpy, byte-identical to the JAX package's for the same
 inputs; `repro_torch.ann.index.FilteredIndex` uploads them to a device.
+
+A sealed dataset persists as an on-disk segment (`save_segment` /
+`load_segment`), in the JAX package's format: a segment written by
+either package opens in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
+import os
 from typing import Sequence
 
 import numpy as np
 
 from repro_torch.ann import labels as lb
 from repro_torch.ann.predicates import Predicate, eval_predicate_np
+
+# On-disk segment format (one directory per sealed generation): .npy
+# array files + a segment.json manifest with per-file sha1 checksums,
+# readable zero-copy via np.memmap. Version 2 adds word-level RLE for the
+# per-row label bitmaps (rows are group-sorted, so each bitmap column is
+# about G runs); files record their "encoding" and v1 segments (all raw)
+# load unchanged. The strings are the JAX package's, so either package
+# reads the other's segments.
+SEGMENT_FORMAT = "repro.ann-segment"
+SEGMENT_VERSION = 2
+SEGMENT_META = "segment.json"
+_SEGMENT_ARRAYS = ("vectors", "bitmaps", "norms_sq", "group_of",
+                   "group_bitmaps", "group_start", "group_size")
+_RLE_FIELDS = ("bitmaps",)          # the [N, W] bitmaps dominate label bytes
+_RLE_ENCODING = "rle-u32-colmajor"
+
+
+def rle_encode_words(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Column-major word-level run-length encoding of a [N, W] uint32
+    array. Returns (values u32, counts) with ``np.repeat(values, counts)``
+    reproducing ``arr.T.ravel()``; counts take the smallest unsigned
+    dtype that holds the longest run."""
+    flat = np.ascontiguousarray(arr.T).ravel()
+    if flat.size == 0:
+        return (np.empty(0, np.uint32), np.empty(0, np.int64))
+    edge = np.flatnonzero(np.diff(flat)) + 1
+    starts = np.concatenate(([0], edge))
+    counts = np.diff(np.concatenate((starts, [flat.size])))
+    for dt in (np.uint16, np.uint32):
+        if counts.max() <= np.iinfo(dt).max:
+            counts = counts.astype(dt)
+            break
+    else:
+        counts = counts.astype(np.int64)
+    return flat[starts].astype(np.uint32), counts
+
+
+def rle_decode_words(values: np.ndarray, counts: np.ndarray,
+                     shape: tuple[int, int]) -> np.ndarray:
+    """Inverse of `rle_encode_words`: exact [N, W] uint32 round-trip.
+    Raises ValueError when the stream does not decode to `shape`."""
+    n, w = int(shape[0]), int(shape[1])
+    flat = np.repeat(values.astype(np.uint32), counts)
+    if flat.size != n * w:
+        raise ValueError(
+            f"RLE stream decodes to {flat.size} words; shape "
+            f"{(n, w)} needs {n * w} (torn or corrupt segment)")
+    return np.ascontiguousarray(flat.reshape(w, n).T)
 
 
 def sha1_file(path: str, block: int = 1 << 22) -> str:
@@ -27,6 +81,16 @@ def sha1_file(path: str, block: int = 1 << 22) -> str:
             if not chunk:
                 return h.hexdigest()
             h.update(chunk)
+
+
+def fsync_path(path: str) -> None:
+    """fsync a file or directory: durable before a manifest commit may
+    reference it."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 @dataclasses.dataclass
@@ -93,6 +157,112 @@ class ANNDataset:
             norms_sq=np.sum(vectors.astype(np.float64) ** 2, axis=1).astype(np.float32),
         )
         return (ds, order) if return_order else ds
+
+    # ---- durable segment files (repro_torch.ann.store) -----------------
+    def save_segment(self, dirpath: str) -> dict:
+        """Write this dataset as an immutable on-disk segment: one
+        ``.npy`` file per array plus a ``segment.json`` manifest with
+        shapes and per-file sha1 checksums. The [N, W] label bitmaps are
+        stored RLE-encoded (``.rle.npz``) when that is smaller than raw,
+        else raw. Everything is fsynced before the call returns. Returns
+        the manifest dict."""
+        os.makedirs(dirpath, exist_ok=True)
+        files = {}
+        for field in _SEGMENT_ARRAYS:
+            arr = np.ascontiguousarray(getattr(self, field))
+            encoding = "raw"
+            if field in _RLE_FIELDS and arr.ndim == 2:
+                values, counts = rle_encode_words(arr)
+                if values.nbytes + counts.nbytes < arr.nbytes:
+                    encoding = _RLE_ENCODING
+            if encoding == _RLE_ENCODING:
+                fname = f"{field}.rle.npz"
+                fpath = os.path.join(dirpath, fname)
+                np.savez(fpath, values=values, counts=counts)
+            else:
+                fname = f"{field}.npy"
+                fpath = os.path.join(dirpath, fname)
+                np.save(fpath, arr)
+            files[field] = {"file": fname, "sha1": sha1_file(fpath),
+                            "bytes": os.path.getsize(fpath),
+                            "shape": list(arr.shape),
+                            "dtype": str(arr.dtype),
+                            "encoding": encoding}
+        meta = {
+            "format": SEGMENT_FORMAT,
+            "version": SEGMENT_VERSION,
+            "name": self.name,
+            "n": self.n,
+            "dim": self.dim,
+            "universe": self.universe,
+            "width": int(self.bitmaps.shape[1]),
+            "n_groups": self.n_groups,
+            "files": files,
+        }
+        tmp = os.path.join(dirpath, SEGMENT_META + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(dirpath, SEGMENT_META))
+        for field in _SEGMENT_ARRAYS:
+            fsync_path(os.path.join(dirpath, files[field]["file"]))
+        fsync_path(dirpath)
+        return meta
+
+    @staticmethod
+    def load_segment(dirpath: str, *, mmap: bool = True,
+                     verify: bool = False) -> "ANNDataset":
+        """Open a segment written by `save_segment` (either package's).
+
+        With ``mmap=True`` (default) every raw array is an ``np.memmap``
+        view of its file (RLE-encoded bitmaps decode into memory);
+        ``FilteredIndex`` uploads either to its device. ``verify=True``
+        re-hashes every file against its recorded sha1. Raises ValueError
+        for a directory that is not a segment, a newer version, a file
+        whose size or checksum disagrees, or an unknown encoding."""
+        meta_path = os.path.join(dirpath, SEGMENT_META)
+        if not os.path.exists(meta_path):
+            raise ValueError(f"{dirpath!r} is not a segment directory "
+                             f"(no {SEGMENT_META})")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if meta.get("format") != SEGMENT_FORMAT:
+            raise ValueError(
+                f"{dirpath!r} is not a {SEGMENT_FORMAT} segment "
+                f"(format={meta.get('format')!r})")
+        if int(meta.get("version", -1)) > SEGMENT_VERSION:
+            raise ValueError(
+                f"segment version {meta['version']} is newer than "
+                f"supported version {SEGMENT_VERSION}")
+        arrays = {}
+        for field in _SEGMENT_ARRAYS:
+            info = meta["files"][field]
+            fpath = os.path.join(dirpath, info["file"])
+            size = os.path.getsize(fpath)
+            if size != info["bytes"]:
+                raise ValueError(
+                    f"segment file {fpath!r} is {size} bytes; manifest "
+                    f"records {info['bytes']} (torn or corrupt segment)")
+            if verify and sha1_file(fpath) != info["sha1"]:
+                raise ValueError(
+                    f"segment file {fpath!r} fails its sha1 checksum")
+            encoding = info.get("encoding", "raw")
+            if encoding == _RLE_ENCODING:
+                with np.load(fpath) as z:
+                    arrays[field] = rle_decode_words(
+                        z["values"], z["counts"], info["shape"])
+            elif encoding == "raw":
+                arrays[field] = np.load(fpath,
+                                        mmap_mode="r" if mmap else None)
+            else:
+                raise ValueError(
+                    f"segment file {fpath!r} uses unknown encoding "
+                    f"{encoding!r} (newer writer?)")
+        lookup = {lb.bitmap_key(np.ascontiguousarray(bm)): j
+                  for j, bm in enumerate(arrays["group_bitmaps"])}
+        return ANNDataset(name=meta["name"], universe=int(meta["universe"]),
+                          group_lookup=lookup, **arrays)
 
     @property
     def n(self) -> int:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import warnings
 
 import numpy as np
 import torch
@@ -92,11 +93,18 @@ def mask_cand(cand_bm: torch.Tensor, q_bm: torch.Tensor, pred) -> torch.Tensor:
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on `device`; uint32 bitmaps become int32
-    views of the same bits."""
+    views of the same bits. A read-only array (a segment's `np.memmap`)
+    is copied on the host only for a CPU tensor, which would alias it;
+    an upload to the card copies it there and reads it only once."""
     x = np.asarray(x)
-    if x.dtype == np.uint32:
-        return lb.bitmap_tensor(x, device)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    if not x.flags.writeable and torch.device(device).type == "cpu":
+        x = np.array(x)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable", UserWarning)
+        if x.dtype == np.uint32:
+            return lb.bitmap_tensor(x, device)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
 def _host(x) -> np.ndarray:

@@ -53,10 +53,13 @@ sealed one (`ShardedRouterService` the sharded one); routing features
 stay fresh through `live_stats()`, which `repro_torch.core.features`
 reads (live per-label counts and exact live selectivity corrections).
 
-Not ported yet from the JAX package's module: the write-ahead-log hooks
-(`attach_wal` and the WAL calls in the writes and compactions of both
-handles, with the store), the resource-ledger gauges and leases and the
-trace spans (with the serving ops).
+Both handles take a write-ahead log (`attach_wal`): every write is
+logged before the state mutates and made durable off the write lock, and
+each compaction logs a barrier at its snapshot point, so
+`repro_torch.ann.store.IndexStore` replays a handle exactly. Not ported
+yet from the JAX package's module: the live handles' resource-ledger
+gauges and leases (snapshot pins, retired generations) and their trace
+spans (`live.base`/`live.delta`/`live.merge` and the `shard` span).
 """
 
 from __future__ import annotations
@@ -443,6 +446,21 @@ class DeltaSegment:
                     bitmaps=bm[lo: lo + self.chunk], seed=i))
             return self._chunk_idx[:want]
 
+    def adopt_chunk_indexes(self, indexes: dict[int, ChunkIndex]) -> None:
+        """Install persisted chunk indexes (the store's restore path).
+        Only a contiguous prefix extension of the chunks built so far,
+        over sealed chunks, is taken; the rest build lazily."""
+        with self._dev_lock:
+            sealed = self._rows // self.chunk
+            for i in sorted(indexes):
+                if i == len(self._chunk_idx) and i < sealed:
+                    self._chunk_idx.append(indexes[i])
+
+    def built_chunk_indexes(self) -> list[ChunkIndex]:
+        """The chunk indexes built so far (no building)."""
+        with self._dev_lock:
+            return list(self._chunk_idx)
+
 
 class _StageTimings:
     """Instance facade over the engine's thread-local stage-timing
@@ -725,6 +743,7 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
         self._next_key = int(next_key) if next_key is not None else \
             (int(self._keys.max()) + 1 if self._base_n else 0)
         self._key_rows: KeyTable | None = None   # built lazily
+        self._wal = None                          # attached write-ahead log
         self._lock = threading.RLock()
         self._readers: dict[int, int] = {}      # generation -> pin count
         self._retired: dict[int, FilteredIndex | None] = {}
@@ -898,6 +917,9 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
         with self._lock:
             self._check_open()
             ks = self._claim_keys(keys, vectors.shape[0])
+            wal = self._wal
+            if wal is not None:              # logged before applied
+                seq = wal.log_upsert(self._generation, ks, vectors, bitmaps)
             start, stop = self._delta.append(vectors, bitmaps)
             self._tomb = np.concatenate(
                 [self._tomb, np.zeros(stop - start, bool)])
@@ -905,8 +927,11 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
             self._note_new_keys(ks, self._base_n + start)
             self._live_label_counts = self._live_label_counts + counts
             self._clock_touch(counts)
-            return np.arange(self._base_n + start, self._base_n + stop,
-                             dtype=np.int64)
+            out = np.arange(self._base_n + start, self._base_n + stop,
+                            dtype=np.int64)
+        if wal is not None:
+            wal.commit(seq)                  # durable before acked, off-lock
+        return out
 
     def _row_live(self, rows: np.ndarray) -> np.ndarray:
         """bool[R]: which current-generation rows are not tombstoned
@@ -925,6 +950,9 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                 raise IndexError(
                     f"delete ids must be in [0, {n_tot}); got range "
                     f"[{ids.min()}, {ids.max()}]")
+            wal = self._wal
+            if wal is not None:              # replay is idempotent
+                seq = wal.log_delete(self._generation, ids)
             fresh = np.unique(ids[~self._tomb[ids]])
             if fresh.size:
                 self._tomb[fresh] = True
@@ -933,7 +961,21 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                                         self._universe)
                 self._live_label_counts = self._live_label_counts - dcounts
                 self._clock_touch(dcounts)
-            return int(fresh.size)
+            out = int(fresh.size)
+        if wal is not None:
+            wal.commit(seq)                  # durable before acked, off-lock
+        return out
+
+    # ---- durability hook (repro_torch.ann.store) ------------------------
+    def attach_wal(self, wal) -> None:
+        """Attach a write-ahead log: every later `upsert`/`delete`
+        appends a record *before* the state mutates (and commits it off
+        the lock before returning), and `compact_async` logs a
+        compaction barrier at its snapshot point. Pass None to detach.
+        The store owns the log (rotation, fsync, close); the handle only
+        appends."""
+        with self._lock:
+            self._wal = wal
 
     def _bitmaps_of(self, gids: np.ndarray) -> np.ndarray:
         """[R, W] packed bitmaps for current-generation global ids."""
@@ -1356,8 +1398,15 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                     max_workers=1,
                     thread_name_prefix=f"compact-{self._name}")
             snap = self.snapshot()
+            wal = self._wal
+            if wal is not None:
+                # barrier record: replay compacts synchronously at this
+                # point, reproducing the snapshot's fold exactly
+                seq = wal.log_compact(self._generation)
             fut = self._compact_pool.submit(self._compact_job, snap)
             self._compacting = fut
+        if wal is not None:
+            wal.commit(seq)
         return fut
 
     def _compact_job(self, snap: LiveSnapshot) -> int:
@@ -1519,6 +1568,7 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                 "graft": self._graft,
                 "delta_chunk_indexes": len(self._delta._chunk_idx),
                 "delta_prune": dict(self._prune_stats),
+                "wal_attached": self._wal is not None,
                 "closed": self._closed,
             }
 
@@ -1592,10 +1642,11 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
     `delta_chunk`, `base_keys`, `next_key`, `generation`, `fused` and
     `delta_prune_min_rows`. Raises ValueError for `n_shards < 1`.
 
-    The JAX package's handle also logs every write to an attached
-    write-ahead log (`attach_wal`) and opens a `shard` trace span around
-    each shard run; the store and the tracing layer are not ported yet,
-    so this one keeps only the stage timings.
+    Writes and compactions log to an attached write-ahead log
+    (`attach_wal`) at the sharded level: global ids and keys, the epoch
+    as the generation. The JAX package's handle also opens a `shard`
+    trace span around each shard run; that hook is not ported yet, so
+    this one keeps only the stage timings.
     """
 
     def __init__(self, ds: ANNDataset | None = None, n_shards: int = 1, *,
@@ -1649,6 +1700,8 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
         self._next_key = int(next_key) if next_key is not None else \
             (int(self._keys.max()) + 1 if self._total_base else 0)
         self._key_rows: KeyTable | None = None   # key -> gid, built lazily
+        self._wal = None
+        self._wal_quiet = False               # compaction's internal replay
         self._pool = (ThreadPoolExecutor(
             max_workers=n_shards,
             thread_name_prefix=f"live-shard-{self._name}")
@@ -1822,6 +1875,9 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
             self._check_open()
             n = vectors.shape[0]
             ks = self._claim_keys(keys, n)
+            wal = self._wal if not self._wal_quiet else None
+            if wal is not None:
+                seq = wal.log_upsert(self._epoch, ks, vectors, bitmaps)
             nsh = self.n_shards
             shard_of = (self._next_shard + np.arange(n)) % nsh
             gid0 = self._total_base + len(self._delta_loc)
@@ -1841,7 +1897,10 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
             self._clock_touch(counts)
             self._gid_arrays = None           # snapshots rebuild lazily
             self._next_shard = (self._next_shard + n) % nsh
-            return np.arange(gid0, gid0 + n, dtype=np.int64)
+            out = np.arange(gid0, gid0 + n, dtype=np.int64)
+        if wal is not None:
+            wal.commit(seq)                  # durable before acked, off-lock
+        return out
 
     def _row_live(self, rows: np.ndarray) -> np.ndarray:
         """bool[R]: which current-generation global ids are live (mixin
@@ -1871,6 +1930,9 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                 raise IndexError(
                     f"delete ids must be in [0, {n_tot}); got range "
                     f"[{ids.min()}, {ids.max()}]")
+            wal = self._wal if not self._wal_quiet else None
+            if wal is not None:
+                seq = wal.log_delete(self._epoch, ids)
             per: dict[int, list] = {}
             for gid in ids.tolist():
                 s, lid = self._shard_local(gid)
@@ -1882,11 +1944,22 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                     [self.shards[s]._bitmaps_of(np.asarray(lids, np.int64))
                      for s, lids in per.items()])
                 self._clock_touch(_label_counts(bms, self._universe))
-            return sum(self.shards[s].delete(lids)
-                       for s, lids in per.items())
+            out = sum(self.shards[s].delete(lids)
+                      for s, lids in per.items())
+        if wal is not None:
+            wal.commit(seq)                  # durable before acked, off-lock
+        return out
 
     # stable external keys (`keys_of`/`rows_of`/`delete_keys`/`_claim_keys`)
     # come from _StableKeyMixin (global ids / global keys).
+
+    # ---- durability hook (repro_torch.ann.store) ------------------------
+    def attach_wal(self, wal) -> None:
+        """Attach a write-ahead log at the sharded level (global ids and
+        keys; the per-shard handles stay without one). See
+        `LiveFilteredIndex.attach_wal`."""
+        with self._lock:
+            self._wal = wal
 
     # ---- read path -------------------------------------------------------
     def snapshot(self) -> ShardedLiveSnapshot:
@@ -2146,6 +2219,11 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                 locs = list(self._delta_loc)
                 old_total = self._total_base + len(locs)
                 old_keys = self._keys[:old_total].copy()
+                wal = self._wal
+                if wal is not None:
+                    seq = wal.log_compact(self._epoch)
+            if wal is not None:
+                wal.commit(seq)
             vectors, bitmaps, kept = self._gather(snaps, locs)
             new_ds, order = ANNDataset.from_packed(
                 self._name, vectors, bitmaps, self._universe,
@@ -2224,7 +2302,8 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                     self._feature_fx = None
                 # replay: rows that missed the snapshot (and every row
                 # when the base fell below the shard count), with their
-                # stable keys
+                # stable keys; the log stays quiet — these rows' own
+                # upsert and delete records already cover them
                 replay = []
                 if new_base is None and new_ds.n:
                     replay.append((new_ds.vectors, new_ds.bitmaps, None,
@@ -2235,16 +2314,20 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                         np.stack([t[1] for t in tail_rows]),
                         np.array([t[2] for t in tail_rows], bool),
                         tail_keys))
-                for vecs, bms, dead, ks in replay:
-                    gids = self.upsert(vecs, bms, keys=ks)
-                    if dead is not None and dead.any():
-                        self.delete(gids[dead])
-                if late_tomb:
-                    ng = remap[np.asarray(late_tomb, np.int64)]
-                    ng = ng[(ng >= 0) & (ng < self._total_base
-                                         + len(self._delta_loc))]
-                    if ng.size:
-                        self.delete(ng)
+                self._wal_quiet = True
+                try:
+                    for vecs, bms, dead, ks in replay:
+                        gids = self.upsert(vecs, bms, keys=ks)
+                        if dead is not None and dead.any():
+                            self.delete(gids[dead])
+                    if late_tomb:
+                        ng = remap[np.asarray(late_tomb, np.int64)]
+                        ng = ng[(ng >= 0) & (ng < self._total_base
+                                             + len(self._delta_loc))]
+                        if ng.size:
+                            self.delete(ng)
+                finally:
+                    self._wal_quiet = False
                 if self._epoch_readers.get(old_epoch):
                     self._old_shards[old_epoch] = old_shards
                 else:
@@ -2307,6 +2390,7 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                 "next_key": self._next_key,
                 "compacting": (self._compacting is not None
                                and not self._compacting.done()),
+                "wal_attached": self._wal is not None,
                 "closed": self._closed,
                 "shards": [s.stats() for s in self.shards],
             }

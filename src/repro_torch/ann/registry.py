@@ -111,6 +111,24 @@ def get_method(name: str):
     return default_registry().get(name)
 
 
+def serialize_index(method, index) -> dict | None:
+    """Persistable array form of a built index (method name or
+    instance): a dict of numpy arrays under the JAX package's keys when
+    the method persists its index (`Method.index_arrays`), else None —
+    the caller records the build key and rebuilds on load."""
+    if isinstance(method, str):
+        method = get_method(method)
+    return method.index_arrays(index)
+
+
+def deserialize_index(method, ds, build_params: dict, arrays: dict):
+    """Restore a built index from `serialize_index` output (either
+    package's); `build_params` as passed to `Method.build`."""
+    if isinstance(method, str):
+        method = get_method(method)
+    return method.index_from_arrays(ds, dict(build_params), dict(arrays))
+
+
 def candidate_methods() -> RegistryView:
     """Live view of the router's candidate pool."""
     return default_registry().view(candidates_only=True)
