@@ -38,8 +38,14 @@ not 0):
 7. slice 2 — the sharded path's kernels against their plain versions
              (`merge_topk` and `masked_topk_blocks` bit-identical on tie
              grids, bf16 `masked_topk` too, and both held to summation
-             order at 1M × 192); then, each with the launch counts set to
-             0 just before and read just after: (a) the sharded path,
+             order at 1M × 192; `merge_topk`'s regimes bit-identical on
+             unordered lists of S = 1-3 at K = 416, 1,016, 4,096 and
+             60,000, with the staged read's holes, NaN, ±0.0 and ties at
+             the k-th place, all slots tied, k = 1, 10, 128, 129, 1,016
+             and past S·K, and sorted lists with and without the scans'
+             promise, past shared memory too, `check_merge_regimes`);
+             then, each with the launch counts set to 0 just before and
+             read just after: (a) the sharded path,
              `ShardedFilteredIndex(ds, 4)` on the card, its exact search
              bit-identical to the single index and
              `ShardedRouterService.search` routing as `RouterService`
@@ -69,9 +75,16 @@ not 0):
              sieve rebuilt, each graft or build timed; the compacted
              index equal to a fresh `FilteredIndex` over its dataset,
              `last_remap` translating ids). Then profiles and times of the
-             live path and kernels; `merge_topk` beside `torch.topk` on the
-             staged read's [2, 256, KK] lists and on the multi-block entry
-             point's [NB, 256, 10] block lists (`live.merge_topk.yardstick`).
+             live path and kernels; `merge_topk` held bit for bit to its
+             plain version and timed beside `torch.topk` on its kinds of
+             input: the staged read's [2, 256, KK] lists, the multi-block
+             entry point's [NB, 256, 10] block lists, the sharded path's
+             [4, 256, 10] shard lists, the folds inside `masked_topk` on
+             the first 64-query chunk (at the batch's k, and at k = 32 and
+             128, past shared memory, where the scans' promise that the
+             lists are sorted also times the workspace select without it)
+             and inside `fused_live` on the live read's inputs
+             (`live.merge_topk.yardstick`).
 9. any k   — slice 4: the select of the k > 128 paths, `merge_topk`,
              `fused_live` and `masked_topk_blocks` past k = 128 and the
              register-blocked tile scan (odd and wide D, bf16, W = 1 and
@@ -141,7 +154,8 @@ not 0):
              pair rebuilt on the 4 new shards and nothing else, reads
              bit-identical to the handle's before the close, shard 0's
              overfetch and every `merge_topk` fold held to the plain
-             versions); then
+             versions, and every fold timed beside `torch.topk`,
+             `store.merge_topk.yardstick`); then
              `checkpoint()` and open (every per-shard index adopted, 0
              builds). One line a step: seconds, the adoption of each
              index file, WAL bytes and records, segment bytes, peak device
@@ -149,7 +163,10 @@ not 0):
              to 0 just before each and read just after.
 
 The last three lines are nvidia-smi's name and power limit, the kernels'
-JSON line and `{"ok": true, "device": {...}}`. Without a CUDA device the
+JSON line (`merge_topk`'s row with `by_input`: each input kind's ms,
+`torch.topk` ms and bound, and the time before its redesign where
+PERF.md has one, labelled as copied) and `{"ok": true, "device":
+{...}}`. Without a CUDA device the
 script exits 1 and prints no result.
 """
 
@@ -249,6 +266,15 @@ EARLIER_MS = {"masked_topk": (0.395, 1.512, 1.721),
               "fused_live": (0.242, 0.483, 0.521),
               "masked_topk_large": (0.644, 1.641, 1.801)}
 
+# `merge_topk`'s time per predicate (E, A, O) on each input kind before
+# its redesign, copied from PERF.md (this script's run 1 of the store
+# slice for the staged and block lists, run 4 of the any-k slice for the
+# shard lists, both on an NVIDIA H100 80GB HBM3 at 700 W). Not measured
+# by this run: labelled so where the kernels' line carries them.
+MERGE_EARLIER_MS = {"staged": (0.686, 0.684, 0.684),
+                    "blocks": (0.0514, 0.0505, 0.0508),
+                    "shards": EARLIER_MS["merge_topk"]}
+
 # The router artifacts (the five candidates, `router_all`, for every
 # routed path).
 ASSETS = os.path.join(ROOT, "src", "repro_torch", "assets")
@@ -328,11 +354,14 @@ def selectivity_bound(q: int, n: int, w: int) -> tuple[float, float]:
     return q * n * w / INT32_OPS, nbytes / HBM_BYTES_S
 
 
-def merge_topk_bound(s: int, q: int, kk: int, k: int) -> tuple[float, float]:
+def merge_topk_bound(s: int, q: int, kk: int, k: int,
+                     sorted_lists: bool = False) -> tuple[float, float]:
     """(operations time, bytes time) in seconds for one merge_topk launch:
     [S, Q, K] dists and ids read once, [Q, k] written once; one compare
-    per candidate, which is nothing beside the bytes."""
-    return s * q * kk / INT32_OPS, (s * q * kk + q * k) * 8 / HBM_BYTES_S
+    per candidate, which is nothing beside the bytes. Lists known to be
+    sorted need only each list's head and the k winners read."""
+    read = s * q + q * min(k, s * kk) if sorted_lists else s * q * kk
+    return read / INT32_OPS, (read + q * k) * 8 / HBM_BYTES_S
 
 
 # ---------------------------------------------------------------------------
@@ -551,6 +580,84 @@ def merge_grid(rng, s: int, q: int, kk: int):
     return d, ids
 
 
+def staged_lists(rng, s: int, q: int, kk: int, dead: float = 0.35):
+    """The staged live read's fold on a coarse grid: a base overfetch of kk
+    ascending candidates with (−1, +inf) holes where rows are tombstoned,
+    and for s >= 2 delta top-k lists half as wide with a tail of (−1,
+    +inf) pads, padded to kk as `stack_candidates` pads them; ±0.0 among
+    the distances. Returns (dists, ids) numpy."""
+    def grid(n):
+        x = np.round(rng.normal(size=(q, n)), 1).astype(np.float32)
+        x[rng.random(x.shape) < 0.1] = np.float32(-0.0)
+        key = mk.order_key(torch.from_numpy(x)).numpy()
+        return np.take_along_axis(x, np.argsort(key, 1, kind="stable"), 1)
+    d = np.full((s, q, kk), np.inf, np.float32)
+    ids = np.full((s, q, kk), -1, np.int32)
+    d[0] = grid(kk)
+    ids[0] = rng.permutation(q * kk).reshape(q, kk)
+    hole = rng.random((q, kk)) < dead
+    d[0][hole], ids[0][hole] = np.inf, -1
+    kd = max(1, kk // 2)
+    for j in range(1, s):
+        d[j, :, :kd] = grid(kd)
+        ids[j, :, :kd] = j * q * kk + np.arange(q * kd).reshape(q, kd)
+        for qi, nval in enumerate(rng.integers(0, kd + 1, q)):
+            d[j, qi, nval:], ids[j, qi, nval:] = np.inf, -1
+    return d, ids
+
+
+def check_merge_regimes(dev, rng) -> int:
+    """`merge_topk`'s regimes against its plain version, bit for bit:
+    unordered lists of S = 1, 2, 3 at K = 416, 1,016 and 4,096 (the
+    shared-memory select) and K = 60,000 (past shared memory: the
+    workspace select), each as the coarse grid of `merge_grid` (NaN,
+    ±inf, ±0.0 and −1 ids), as the staged read's lists with holes, and
+    with every slot at one distance (ties across the lanes' stripes and
+    the select's blocks); k = 1, 10, 128, 129, 1,016 and past S·K; and
+    sorted lists with and without the scans' promise (`merge_fold`), past
+    shared memory too (the stepping merge, a thread that owns two lists
+    past 1,024). Returns the number of cases."""
+    cases = 0
+
+    def held(what, dt, it, k, promise=False):
+        nonlocal cases
+        gd, gi = (merge_fold(dt, it, k, True) if promise
+                  else mk.merge_topk_accum(dt, it, k=k))
+        pd, pi = mk.merge_topk_plain(dt, it, k=k)
+        torch.cuda.synchronize()
+        if not (torch.equal(gi, pi) and torch.equal(
+                gd.view(torch.int32), pd.view(torch.int32))):
+            raise AssertionError(f"merge_topk differs from its plain "
+                                 f"version: {what}, {list(dt.shape)}, k {k}")
+        cases += 1
+
+    for s, q, kk in [(1, 256, 416), (2, 256, 1016), (3, 64, 4096),
+                     (2, 3, 60_000)]:
+        tied_d = np.full((s, q, kk), 2.5, np.float32)
+        tied_i = rng.integers(0, 1 << 30, (s, q, kk)).astype(np.int32)
+        tied_i[rng.random(tied_i.shape) < 0.2] = -1
+        kinds = {"grid": merge_grid(rng, s, q, kk),
+                 "staged": staged_lists(rng, s, q, kk),
+                 "tied": (tied_d, tied_i)}
+        for kind, arrays in kinds.items():
+            dt, it = on_card(dev, *arrays)
+            for k in (1, 10, 128, 129, 1016, s * kk + 5):
+                held(kind, dt, it, k)
+    for s, q, kk, k in [(4, 256, 10, 10), (977, 64, 10, 10),
+                        (2, 256, 1016, 10), (1, 3, 60_000, 129),
+                        (977, 16, 32, 32), (1025, 4, 128, 128),
+                        (3, 8, 10_000, 10)]:
+        d, ids = merge_grid(rng, s, q, kk)
+        d = np.where(np.isnan(d) | (ids < 0), np.float32(mk.PAD_SCORE), d)
+        key = mk.order_key(torch.from_numpy(d)).numpy()
+        order = np.argsort(key, axis=2, kind="stable")
+        dt, it = on_card(dev, np.take_along_axis(d, order, 2),
+                         np.take_along_axis(ids, order, 2))
+        for promise in (False, True):
+            held(f"sorted, promised {promise}", dt, it, k, promise)
+    return cases
+
+
 def check_slice2_kernels(dev, fx, batches: dict) -> dict:
     """`merge_topk`, `masked_topk_blocks` and bf16 `masked_topk` against
     their plain versions on the card. Returns max abs errors."""
@@ -577,6 +684,7 @@ def check_slice2_kernels(dev, fx, batches: dict) -> dict:
             raise AssertionError(f"merge_topk differs from its plain "
                                  f"version: S {s}, Q {q}, K {kk}, k {k}")
         merge_cases += 1
+    merge_cases += check_merge_regimes(dev, rng)
 
     # masked_topk_blocks and bf16 masked_topk: bit-identical on the tie
     # grid (exact in bf16 too)
@@ -1867,6 +1975,38 @@ def time_live_kernels(live, batches: dict, dev) -> dict:
     return out
 
 
+def merge_fold(dt, it, k: int, promise: bool):
+    """`merge_topk`'s kernel launched as the scans launch their fold
+    (`masked_topk._merge_launch`), with or without their promise that
+    every list is sorted: raw (dists [Q, k], ids [Q, k]). CPU tensors
+    (a rehearsal) take the plain version, as the wrappers do."""
+    if not dt.is_cuda:
+        return mk.merge_topk_plain(dt, it, k=k)
+    q_ = dt.shape[1]
+    od = torch.empty((q_, k), dtype=torch.float32, device=dt.device)
+    oi = torch.empty((q_, k), dtype=torch.int32, device=dt.device)
+    _build.check(mk._merge_launch(_build.library(), dt.device, dt, it, od,
+                                  oi, k, promise), "merge_topk")
+    return od, oi
+
+
+@contextlib.contextmanager
+def captured_folds():
+    """Record copies of the (dists, ids, k) every scan's fold merges
+    (`masked_topk._merge_launch`) while the block runs."""
+    calls = []
+    orig = mk._merge_launch
+
+    def capture(lib, dev, dists, ids, out_d, out_i, k, sorted_lists):
+        calls.append((dists.clone(), ids.clone(), k))
+        return orig(lib, dev, dists, ids, out_d, out_i, k, sorted_lists)
+    mk._merge_launch = capture
+    try:
+        yield calls
+    finally:
+        mk._merge_launch = orig
+
+
 @contextlib.contextmanager
 def captured_merges():
     """Record the (ids, dists, k) of every `ops.merge_topk` call while the
@@ -1885,18 +2025,66 @@ def captured_merges():
         ops.merge_topk = orig
 
 
-def time_merge_yardsticks(live, fx, batches: dict, dev) -> dict:
-    """`merge_topk` beside one library call on the same inputs at its two
-    wide shapes: the staged live read's fold of the base overfetch and the
-    delta top-k ([2, 256, KK] lists with tombstoned slots, unordered), and
-    the multi-block entry point's fold of its [NB, 256, 10] block lists.
-    The library call is `torch.topk` over the query-major [256, S·KK]
-    copy, which finds the same set with no tie order. Returns per-shape
-    sums over the three predicates."""
+def merge_yardstick(dt, it, k: int, flush, promise: bool = False) -> dict:
+    """`merge_topk` on [S, Q, K] lists, through the public wrapper or, with
+    `promise`, as the scans launch their fold (`merge_fold`): held bit for
+    bit to its plain version, then timed beside one library call on the
+    same inputs, `torch.topk` over the query-major [Q, S·K] copy (which
+    finds the same set with no tie order). Where the promise makes the
+    kernel step through the lists (keys past shared memory), the
+    workspace select it would take without the promise is timed too.
+    Returns the shape, k, the regime and the times."""
+    s_, q_, kk = dt.shape
+    past = dt.is_cuda and _build.library().merge_topk_workspace_bytes(
+        s_, q_, kk, k, 0) > 0
+    run = ((lambda: merge_fold(dt, it, k, True)) if promise
+           else (lambda: mk.merge_topk_accum(dt, it, k=k)))
+    pd, pi = mk.merge_topk_plain(dt, it, k=k)
+    for f in (run, lambda: merge_fold(dt, it, k, False)) if past else (run,):
+        gd, gi = f()
+        torch.cuda.synchronize()
+        if not (torch.equal(gi, pi) and torch.equal(gd.view(torch.int32),
+                                                    pd.view(torch.int32))):
+            raise AssertionError(f"merge_topk differs from its plain "
+                                 f"version on the {list(dt.shape)} lists, "
+                                 f"k {k}, promise {promise}")
+    flat = dt.transpose(0, 1).reshape(q_, s_ * kk).contiguous()
+    y = {"shape": [s_, q_, kk], "k": k, "promise": promise,
+         "regime": ("stepping" if promise else "workspace select") if past
+         else "shared select",
+         "ms": time_ms(run, 20, flush),
+         "torch_topk_ms": time_ms(lambda: torch.topk(
+             flat, min(k, s_ * kk), dim=1, largest=False), 20, flush),
+         "bound_ms": max(merge_topk_bound(s_, q_, kk, k, promise)) * 1e3}
+    if promise and past:
+        y["workspace_select_ms"] = time_ms(
+            lambda: merge_fold(dt, it, k, False), 20, flush)
+    return y
+
+
+MERGE_KINDS = ("staged", "blocks", "shards", "fold", "fold_k32",
+               "fold_k128", "fused_fold")
+
+
+def time_merge_yardsticks(live, fx, sfx, batches: dict, dev) -> dict:
+    """`merge_topk` beside `torch.topk` (`merge_yardstick`) on its kinds
+    of input, each held to its plain version first: the staged live
+    read's fold of the base overfetch and the delta top-k ([2, 256, KK]
+    lists with tombstoned slots, unordered), the multi-block entry
+    point's fold of its [NB, 256, 10] block lists, the sharded path's
+    [4, 256, 10] shard lists; and, launched as the scans launch them with
+    their promise that the lists are sorted, the fold inside
+    `masked_topk` on the first 64-query chunk ([splits, 64, k] per-split
+    lists) at the batch's k and at k = 32 and 128 (past shared memory),
+    and the fold inside `fused_live` on the live read's inputs
+    ([1 + splits, 256, k]). Returns per-kind sums over the three
+    predicates and the per-predicate lines."""
     dd = fx.device
+    prefilter = get_method("prefilter")
+    setting = prefilter.param_settings()[0]
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
-    out = {shape: dict(ms=0.0, library_ms=0.0, bound_s=0.0)
-           for shape in ("staged", "multiblock")}
+    out = {kind: dict(ms=0.0, library_ms=0.0, bound_s=0.0, per_predicate=[])
+           for kind in MERGE_KINDS}
     for pred, batch in batches.items():
         live.fused = False
         try:
@@ -1904,31 +2092,41 @@ def time_merge_yardsticks(live, fx, batches: dict, dev) -> dict:
                 live.search(batch, "prefilter")
         finally:
             live.fused = True
+        qv = to_device(batch.vectors, dev)
+        qb = to_device(batch.bitmaps, dev)
         with captured_merges() as blocks:
-            ops.masked_topk_multiblock(
-                to_device(batch.vectors, dev), to_device(batch.bitmaps, dev),
-                dd.vectors, dd.norms, dd.bitmaps, pred=pred, k=batch.k)
+            ops.masked_topk_multiblock(qv, qb, dd.vectors, dd.norms,
+                                       dd.bitmaps, pred=pred, k=batch.k)
+        inputs = {}
+        for kind, (ids, dists, k) in (("staged", staged[-1]),
+                                      ("blocks", blocks[-1])):
+            inputs[kind] = (dists.to(torch.float32).contiguous(),
+                            ids.to(torch.int32).contiguous(), k, False)
+        ids, raw = stack_candidates(sfx.shard_candidates(prefilter, setting,
+                                                         batch))
+        inputs["shards"] = (*on_card(dev, raw, ids), batch.k, False)
+        for kind, k in (("fold", batch.k), ("fold_k32", 32),
+                        ("fold_k128", 128)):
+            with captured_folds() as folds:
+                mk.masked_topk_accum(qv[:DEFAULT_QCHUNK], qb[:DEFAULT_QCHUNK],
+                                     dd.vectors, dd.norms, dd.bitmaps,
+                                     pred=pred, k=k)
+            inputs[kind] = (*folds[-1], True)
+        args, kw, _ = live_kernel_inputs(live, batch)
+        with captured_folds() as folds:
+            mk.fused_live_accum(*args, **kw, pred=pred, k=batch.k)
+        inputs["fused_fold"] = (*folds[-1], True)
         line = {}
-        for shape, (ids, dists, k) in (("staged", staged[-1]),
-                                       ("multiblock", blocks[-1])):
-            dt = dists.to(torch.float32).contiguous()
-            it = ids.to(torch.int32).contiguous()
-            s_, q_, kk = dt.shape
-            flat = dt.transpose(0, 1).reshape(q_, s_ * kk).contiguous()
-            ms = time_ms(lambda: mk.merge_topk_accum(dt, it, k=k), 20, flush)
-            lms = time_ms(lambda: torch.topk(flat, k, dim=1, largest=False),
-                          20, flush)
-            bound = merge_topk_bound(s_, q_, kk, k)
-            o = out[shape]
-            o["ms"] += ms
-            o["library_ms"] += lms
-            o["bound_s"] += max(bound)
-            line.update({f"{shape}_shape": [s_, q_, kk], f"{shape}_k": k,
-                         f"{shape}_merge_topk_ms": ms,
-                         f"{shape}_torch_topk_ms": lms,
-                         f"{shape}_bound_ms": max(bound) * 1e3})
+        for kind, (dt, it, k, promise) in inputs.items():
+            y = line[kind] = merge_yardstick(dt, it, k, flush, promise)
+            o = out[kind]
+            o["ms"] += y["ms"]
+            o["library_ms"] += y["torch_topk_ms"]
+            o["bound_s"] += y["bound_ms"] / 1e3
+            o["per_predicate"].append(y)
         emit("live.merge_topk.yardstick", pred=PRED_NAMES[pred],
-             staged_merges=len(staged), **line)
+             staged_merges=len(staged), held_to_plain="bit-identical",
+             **line)
     del flush
     return out
 
@@ -2426,15 +2624,17 @@ def hold_store_kernels(live, batches: dict) -> dict:
     (`masked_topk` up to MAX_K, `masked_topk_large` past it) through
     `hold_to_plain`; and every `merge_topk` fold of the whole read (each
     shard's staged fold, the cross-shard fold) bit for bit against
-    `merge_topk_plain`. Its launches are made outside the counted reads.
-    Returns the largest error of each kernel held, each batch's KB and
-    the folds held."""
+    `merge_topk_plain`, then timed beside `torch.topk` (`merge_yardstick`).
+    Its launches are made outside the counted reads. Returns the largest
+    error of each kernel held, each batch's KB, the folds held and their
+    times."""
     shard = live.shards[0] if isinstance(live, ShardedLiveIndex) else live
     dd = shard.device
     dev = shard.torch_device
     d = dd.vectors.shape[1]
     prefilter = get_method("prefilter")
-    errs, kbs, folds = {}, {}, 0
+    errs, kbs, folds, fold_times = {}, {}, 0, []
+    flush = None
     for pred, batch in batches.items():
         with shard.snapshot() as snap:
             dead = int(snap.tombstones[: snap.base_n].sum())
@@ -2471,22 +2671,17 @@ def hold_store_kernels(live, batches: dict) -> dict:
                          hold_to_plain(scan, pred, base, gd, gi, pd, pi, tol))
         with captured_merges() as merges:
             live.search(batch, "prefilter")
+        if merges and flush is None:
+            flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
         for ids, dists, k in merges:
-            dt = dists.to(torch.float32).contiguous()
             it = ids.to(torch.int32).contiguous()
             k = it.shape[-1] if k is None else k
-            gd, gi = mk.merge_topk_accum(dt, it, k=k)
-            pd, pi = mk.merge_topk_plain(dt, it, k=k)
-            torch.cuda.synchronize()
-            if not (torch.equal(gi, pi) and torch.equal(
-                    gd.view(torch.int32), pd.view(torch.int32))):
-                raise AssertionError(f"merge_topk differs from its plain "
-                                     f"version on a recovered read's "
-                                     f"{list(dt.shape)} fold, "
-                                     f"{PRED_NAMES[pred]}")
+            fold_times.append(merge_yardstick(
+                dists.to(torch.float32).contiguous(), it, k, flush))
             errs["merge_topk"] = 0.0
         folds += len(merges)
-    return {"max_abs_err": errs, "kb": kbs, "merge_folds_held": folds}
+    return {"max_abs_err": errs, "kb": kbs, "merge_folds_held": folds,
+            "merge_folds": fold_times}
 
 
 def flip_table_digit(router_dir: str) -> None:
@@ -2742,6 +2937,7 @@ def run_sharded_store(root: str, ds, batches: dict, launches: dict) -> dict:
         store.index, batches, want, "recovered sharded exact"))
     held = hold_store_kernels(store.index, batches)
     out["max_abs_err"] = held["max_abs_err"]
+    out["merge_folds"] = held.pop("merge_folds")
     out["open_replay_s"] = fields["open_s"]
     emit("store.sharded.open", **fields,
          compaction_rebuilds=[[b["method"], b["seconds"]] for b in builds],
@@ -2767,6 +2963,50 @@ def run_sharded_store(root: str, ds, batches: dict, launches: dict) -> dict:
     store.close()
     out["dir_bytes"] = tree_bytes(root)
     shutil.rmtree(path)
+    return out
+
+
+def merge_by_input(yard: dict, store_folds: list) -> dict:
+    """`merge_topk`'s entries of the kernels' line by input kind: phase
+    8's kinds (sums over the predicates, with each predicate's), and
+    phase 11's recovered sharded store's folds (each shard's [1, 256, KB]
+    staged fold, the cross-shard [4, 256, 10] fold): the regime, ms,
+    `torch.topk` ms on the query-major copy, the bound, the workspace
+    select's ms where the scans' promise makes the kernel step, and where
+    PERF.md has one the time before the redesign, labelled as copied."""
+    out = {}
+    for kind, o in yard.items():
+        pp = o["per_predicate"]
+        out[kind] = {
+            "shape": pp[0]["shape"], "k": pp[0]["k"],
+            "promise": pp[0]["promise"], "regime": pp[0]["regime"],
+            "ms": o["ms"],
+            "torch_topk_ms": o["library_ms"], "bound_ms": o["bound_s"] * 1e3,
+            "per_predicate_ms": [y["ms"] for y in pp],
+            "per_predicate_torch_topk_ms": [y["torch_topk_ms"] for y in pp]}
+        if "workspace_select_ms" in pp[0]:
+            out[kind]["workspace_select_per_predicate_ms"] = [
+                y["workspace_select_ms"] for y in pp]
+        if kind in MERGE_EARLIER_MS:
+            out[kind].update(
+                earlier_ms=sum(MERGE_EARLIER_MS[kind]),
+                earlier_per_predicate_ms=MERGE_EARLIER_MS[kind],
+                earlier_source="copied from PERF.md (before the redesign), "
+                               "not measured by this run")
+    for kind, folds in (
+            ("store_shard_folds", [y for y in store_folds
+                                   if y["shape"][0] == 1]),
+            ("store_cross_shard_folds", [y for y in store_folds
+                                         if y["shape"][0] > 1])):
+        if folds:
+            out[kind] = {
+                "shapes": sorted({tuple(y["shape"]) for y in folds}),
+                "k": sorted({y["k"] for y in folds}), "folds": len(folds),
+                "ms": sum(y["ms"] for y in folds),
+                "torch_topk_ms": sum(y["torch_topk_ms"] for y in folds),
+                "bound_ms": sum(y["bound_ms"] for y in folds),
+                "slowest_over_torch_topk": max(
+                    y["ms"] / y["torch_topk_ms"] for y in folds)}
     return out
 
 
@@ -3014,9 +3254,11 @@ def main() -> int:
     times.update(time_live_kernels(live, exact_batches, dev))
     emit("live.kernels.timing", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    yard = time_merge_yardsticks(live, fx, exact_batches, dev)
+    yard = time_merge_yardsticks(live, fx, sfx, exact_batches, dev)
     emit("live.merge_topk.yardstick_timing",
-         seconds=time.perf_counter() - t0, sums=yard)
+         seconds=time.perf_counter() - t0,
+         sums={kind: {f: v for f, v in o.items() if f != "per_predicate"}
+               for kind, o in yard.items()})
 
     # slice 4, any k: the kernels against their plain versions on grids,
     # then k = ANY_K through the sharded, live and multi-block entry points
@@ -3118,6 +3360,8 @@ def main() -> int:
                                      launches_store)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
+    store_folds = sharded4.pop("merge_folds")
+    emit("store.merge_topk.yardstick", folds=store_folds)
     store_errs = {}
     for part in (single, sharded4):
         for name, err in part.pop("max_abs_err").items():
@@ -3134,7 +3378,8 @@ def main() -> int:
     launches_by_path = {"main": launches, "sharded": launches_sharded,
                         "queue": launches_queue, "multiblock": launches_mb,
                         "live": launches_live, "live_staged": launches_staged,
-                        "anyk": launches_anyk, "sharded_live": launches_sl}
+                        "anyk": launches_anyk, "sharded_live": launches_sl,
+                        "store": launches_store}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []
@@ -3155,7 +3400,8 @@ def main() -> int:
              "one launch per predicate on the [4, 256, 10] shard candidates "
              "of the sharded exact batch, summed; launches from the sharded "
              "path; library_ms is torch.topk over the shard-major [256, 40] "
-             "copy, which finds the same set with no tie order"),
+             "copy, which finds the same set with no tie order; by_input: "
+             "the same on each kind of input (phases 8 and 11)"),
             ("masked_topk_blocks", src + "masked_topk.cu",
              "src/repro/kernels/masked_topk.py:367", launches_mb,
              "one launch per predicate on the whole 256-query exact batch "
@@ -3207,6 +3453,8 @@ def main() -> int:
                        k200_bound_ms=t["k200_bound_s"] * 1e3)
         if name == "selectivity":
             row["widths"] = t["widths"]
+        if name == "merge_topk":
+            row["by_input"] = merge_by_input(yard, store_folds)
         rows.append(row)
     emit("kernels.earlier", source="copied from PERF.md, not measured by "
          "this run", ms={name: sum(t) for name, t in EARLIER_MS.items()},

@@ -39,7 +39,8 @@ _SIGNATURES = {
                           + [_P] * 2 + [_I] * 6 + [_P], _I),
     "fused_live_large_launch": ([_P] * 4 + [_I] + [_P] * 4 + [_I] * 2
                                 + [_P, _I] + [_P] * 4 + [_I] * 6 + [_P], _I),
-    "merge_topk_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "merge_topk_workspace_bytes": ([_I] * 5, ctypes.c_longlong),
+    "merge_topk_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "selectivity_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "selectivity_query_group": ([_I], _I),
     "selectivity_tile_rows": ([_I], _I),

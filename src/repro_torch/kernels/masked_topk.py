@@ -25,7 +25,10 @@ the scanning kernels keep each query's top-k list in shared memory;
 above it `masked_topk`,
 `masked_topk_blocks` and `fused_live` write one sortable key per
 (query, position) and reduce each row's keys with the select of
-`csrc/topk_select.cuh`. The merge keeps no lists and takes any k itself.
+`csrc/topk_select.cuh`. The merge takes any k itself: its lists are
+read once into shared memory and selected there; past that, the scans'
+sorted lists are stepped through, and others go through that select
+over keys in a workspace.
 """
 
 from __future__ import annotations
@@ -246,12 +249,8 @@ def masked_topk_accum(qvecs, qbms, base, norms, bitmaps, *, pred: int,
     part_d, part_i, code = _scan_lists(lib, dev, args, pred, k,
                                        max(1, -(-n // splits_for(n))))
     _build.check(code, "masked_topk")
-    with torch.cuda.device(dev):
-        code = lib.merge_topk_launch(
-            part_d.data_ptr(), part_i.data_ptr(), dists.data_ptr(),
-            ids.data_ptr(), part_d.shape[0], q, k, k, 1,   # lists sorted
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "masked_topk")
+    _build.check(_merge_launch(lib, dev, part_d, part_i, dists, ids, k, True),
+                 "masked_topk")
     _build.count_launch(masked_topk_accum)
     return dists, ids
 
@@ -392,11 +391,30 @@ def merge_topk_plain(dists, ids, *, k: int):
     return out_d, torch.where(out_d >= PAD_SCORE, -1, out_i).to(torch.int32)
 
 
+def _merge_launch(lib, dev, dists, ids, out_d, out_i, k: int,
+                  sorted_lists: bool) -> int:
+    """Launch `csrc/merge_topk.cu` on `dev`'s current stream: [S, Q, K]
+    dists/ids (Q >= 1) into out_d/out_i [Q, k], with the workspace the
+    kernel asks for (none unless the lists are too long for a block's
+    shared memory and not `sorted_lists`). `sorted_lists` is the scans'
+    promise that every [K] list is ascending under the rules of
+    `merge_topk_plain`; the result is the same either way. Returns the
+    CUDA error code."""
+    s, q, kk = dists.shape
+    nbytes = lib.merge_topk_workspace_bytes(s, q, kk, k, int(sorted_lists))
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+    with torch.cuda.device(dev):
+        return lib.merge_topk_launch(
+            dists.data_ptr(), ids.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), None if ws is None else ws.data_ptr(), s, q,
+            kk, k, int(sorted_lists),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
 def merge_topk_accum(dists, ids, *, k: int):
     """Cross-shard top-k merge, raw: dists [S, Q, K] float32, ids
     [S, Q, K] int32 (already global) -> (dists [Q, k], ids [Q, k]) with
-    (PAD_SCORE, −1) at invalid outputs; any k >= 1, which may exceed S·K
-    (the kernel's k argmin rounds keep no lists).
+    (PAD_SCORE, −1) at invalid outputs; any k >= 1, which may exceed S·K.
 
     CUDA tensors launch the kernel (counted in
     `merge_topk_accum.launches`); CPU tensors run `merge_topk_plain`.
@@ -427,12 +445,8 @@ def merge_topk_accum(dists, ids, *, k: int):
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
         return out_d, out_i
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _build.library().merge_topk_launch(
-            dists.data_ptr(), ids.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), s, q, kk, k, 0, stream)
-    _build.check(code, "merge_topk")
+    _build.check(_merge_launch(_build.library(), dev, dists, ids, out_d,
+                               out_i, k, False), "merge_topk")
     _build.count_launch(merge_topk_accum)
     return out_d, out_i
 
@@ -599,10 +613,8 @@ def fused_live_accum(qvecs, qbms, cand_dists, cand_ids, dvec, dnorms, dbm,
             part_d.data_ptr(), part_i.data_ptr(), q, d, w, pred, k, rows,
             stream)
         _build.check(code, "fused_live")
-        code = lib.merge_topk_launch(
-            part_d.data_ptr(), part_i.data_ptr(), dists.data_ptr(),
-            ids.data_ptr(), 1 + splits, q, k, k, 1, stream)   # lists sorted
-    _build.check(code, "fused_live")
+    _build.check(_merge_launch(lib, dev, part_d, part_i, dists, ids, k, True),
+                 "fused_live")
     _build.count_launch(fused_live_accum)
     return dists, ids
 

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import bitmap_filter as bf
 from repro_torch.kernels import masked_topk as mk
 from repro_torch.kernels import ops
@@ -379,7 +380,15 @@ def _merge_grid(rng, s, q, kk):
                                       (977, 256, 10, 10), (40, 7, 30, 128),
                                       (1500, 3, 4, 10), (2, 300, 64, 128),
                                       (3, 9, 4, 10), (3, 20, 100, 200),
-                                      (40, 7, 30, 300), (977, 5, 10, 1000)])
+                                      (40, 7, 30, 300), (977, 5, 10, 1000),
+                                      # the shared-memory select
+                                      (1, 64, 416, 10), (2, 256, 1016, 10),
+                                      (2, 33, 1016, 1), (3, 9, 4096, 129),
+                                      (3, 5, 4096, 1016), (1, 7, 100, 101),
+                                      (2, 20, 1017, 128), (977, 17, 10, 10),
+                                      # past shared memory: the workspace
+                                      (1, 4, 60000, 10), (2, 3, 40000, 129),
+                                      (1, 2, 30000, 30001)])
 def test_merge_topk_kernel_bitwise(cuda, s, q, kk, k):
     rng = np.random.default_rng(s * 31 + q + kk)
     d, ids = _merge_grid(rng, s, q, kk)
@@ -398,12 +407,19 @@ def test_merge_topk_kernel_bitwise(cuda, s, q, kk, k):
     assert torch.equal(cd.cpu().view(torch.int32), wd.view(torch.int32))
 
 
+@pytest.mark.parametrize("sorted_lists", [False, True])
 @pytest.mark.parametrize("s,q,kk,k", [(4, 256, 10, 10), (977, 64, 10, 10),
-                                      (40, 7, 30, 128)])
-def test_merge_topk_kernel_sorted_lists(cuda, s, q, kk, k):
+                                      (40, 7, 30, 128), (2, 256, 1016, 10),
+                                      (1500, 3, 4, 10), (1, 5, 60000, 129),
+                                      (977, 8, 32, 32), (1025, 4, 128, 128),
+                                      (3, 4, 10000, 10)])
+def test_merge_topk_kernel_sorted_lists(cuda, s, q, kk, k, sorted_lists):
     """Lists already ascending, as shards and the fused scan hand them
-    over: the kernel steps through them, with the same result as its
-    plain version."""
+    over, launched as the scans launch their fold: read whole where the
+    keys fit shared memory, past it stepped through with the scans'
+    promise (no workspace; a thread that owns two lists past 1,024) or
+    selected in a workspace without it; always the plain version's
+    result."""
     rng = np.random.default_rng(s + q + kk)
     d, ids = _merge_grid(rng, s, q, kk)
     d = np.where(np.isnan(d) | (ids < 0), np.float32(mk.PAD_SCORE), d)
@@ -412,6 +428,73 @@ def test_merge_topk_kernel_sorted_lists(cuda, s, q, kk, k):
     order = np.argsort(key, axis=2, kind="stable")   # -0.0 before +0.0
     d = np.take_along_axis(d, order, 2)
     ids = np.take_along_axis(ids, order, 2)
+    dt, it = torch.from_numpy(d).to(cuda), torch.from_numpy(ids).to(cuda)
+    lib = _build.library()
+    if sorted_lists:
+        assert lib.merge_topk_workspace_bytes(s, q, kk, k, 1) == 0
+    gd = torch.empty((q, k), dtype=torch.float32, device=dt.device)
+    gi = torch.empty((q, k), dtype=torch.int32, device=dt.device)
+    assert mk._merge_launch(lib, dt.device, dt, it, gd, gi, k,
+                            sorted_lists) == 0
+    pd, pi = mk.merge_topk_plain(dt, it, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, pi)
+    assert torch.equal(gd.view(torch.int32), pd.view(torch.int32))
+
+
+def _staged_lists(rng, s, q, kk, dead=0.35):
+    """The staged live read's fold: a base overfetch of kk ascending
+    candidates with (−1, +inf) holes where rows are tombstoned, and for
+    s = 2 a delta top-k half as wide with a tail of (−1, +inf) pads,
+    padded to kk. Coarse-grid distances, ±0.0 among them, so ties
+    straddle the lists, the lanes' stripes and the k-th place."""
+    def grid(n):
+        x = np.round(rng.normal(size=(q, n)), 1).astype(np.float32)
+        x[rng.random(x.shape) < 0.1] = np.float32(-0.0)
+        key = mk.order_key(torch.from_numpy(x)).numpy()
+        return np.take_along_axis(x, np.argsort(key, 1, kind="stable"), 1)
+    base, b_ids = grid(kk), rng.permutation(q * kk).reshape(q, kk)
+    hole = rng.random((q, kk)) < dead
+    base[hole], b_ids[hole] = np.inf, -1
+    ids, d = [b_ids.astype(np.int32)], [base]
+    if s == 2:
+        kd = kk // 2
+        delta = np.full((q, kk), np.inf, np.float32)
+        d_ids = np.full((q, kk), -1, np.int32)
+        delta[:, :kd] = grid(kd)
+        d_ids[:, :kd] = q * kk + np.arange(q * kd).reshape(q, kd)
+        for qi, nval in enumerate(rng.integers(0, kd + 1, q)):
+            delta[qi, nval:], d_ids[qi, nval:] = np.inf, -1
+        ids.append(d_ids)
+        d.append(delta)
+    return np.stack(d), np.stack(ids)
+
+
+@pytest.mark.parametrize("k", [1, 10, 128, 129, 1016, 2100])
+@pytest.mark.parametrize("s,q,kk", [(1, 256, 416), (2, 256, 1016),
+                                    (2, 7, 30000)])
+def test_merge_topk_kernel_staged_lists(cuda, s, q, kk, k):
+    d, ids = _staged_lists(np.random.default_rng(s * 7 + kk + k), s, q, kk)
+    dt, it = torch.from_numpy(d).to(cuda), torch.from_numpy(ids).to(cuda)
+    gd, gi = mk.merge_topk_accum(dt, it, k=k)
+    pd, pi = mk.merge_topk_plain(dt, it, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, pi)
+    assert torch.equal(gd.view(torch.int32), pd.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 10, 129, 1016])
+@pytest.mark.parametrize("s,q,kk", [(1, 5, 1016), (3, 4, 4096),
+                                    (2, 3, 40000), (977, 3, 10)])
+def test_merge_topk_kernel_all_ties(cuda, s, q, kk, k):
+    """Every valid slot at one distance: the k-th key's ties straddle the
+    lanes' stripes, the tiles and (past shared memory) the select's
+    blocks, and go in position order."""
+    rng = np.random.default_rng(s + kk + k)
+    d = np.full((s, q, kk), 2.5, np.float32)
+    ids = rng.integers(0, 1 << 30, (s, q, kk)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.2] = -1
+    d[rng.random(d.shape) < 0.05] = np.nan
     dt, it = torch.from_numpy(d).to(cuda), torch.from_numpy(ids).to(cuda)
     gd, gi = mk.merge_topk_accum(dt, it, k=k)
     pd, pi = mk.merge_topk_plain(dt, it, k=k)

@@ -450,6 +450,46 @@ def test_merge_topk_single_shard_unsorted():
     _assert_merge_alike(ids, d)
 
 
+def _staged_case(rng, s, q, kk, dead=0.35):
+    """The staged live read's fold (`LiveFilteredIndex._run_staged`): a
+    base overfetch of kk ascending candidates whose tombstoned rows are
+    (−1, +inf) holes mid-list, and for s = 2 a delta top-k half as wide
+    with a tail of (−1, +inf) pads, padded to kk as `stack_candidates`
+    pads it. Distances on a coarse grid, so ties straddle the lists."""
+    def grid(n):
+        return np.sort(np.round(np.abs(rng.normal(size=(q, n))), 1)
+                       .astype(np.float32), 1)
+    base, b_ids = grid(kk), rng.permutation(q * kk).reshape(q, kk)
+    hole = rng.random((q, kk)) < dead
+    base[hole], b_ids[hole] = np.inf, -1
+    ids, d = [b_ids.astype(np.int32)], [base]
+    if s == 2:
+        kd = kk // 2
+        delta = np.full((q, kk), np.inf, np.float32)
+        d_ids = np.full((q, kk), -1, np.int32)
+        delta[:, :kd] = grid(kd)
+        d_ids[:, :kd] = q * kk + np.arange(q * kd).reshape(q, kd)
+        for qi, nval in enumerate(rng.integers(0, kd + 1, q)):
+            delta[qi, nval:], d_ids[qi, nval:] = np.inf, -1
+        ids.append(d_ids)
+        d.append(delta)
+    return np.stack(ids), np.stack(d)
+
+
+@pytest.mark.parametrize("s,kk,k", [(1, 416, 10), (1, 1016, 1),
+                                    (1, 1100, 129), (1, 300, 301),
+                                    (2, 1016, 10), (2, 200, 1),
+                                    (2, 520, 129), (2, 256, 600)])
+def test_merge_topk_staged_lists(s, kk, k):
+    """The staged read's kinds of input: S = 1 or 2 lists of hundreds to
+    a thousand candidates with holes, at k = 1, 10, 129 and past S·K."""
+    ids, d = _staged_case(np.random.default_rng(s * 1000 + kk + k), s, 6,
+                          kk)
+    gi, _ = _assert_merge_alike(ids, d, k=k)
+    np.testing.assert_array_equal((gi >= 0).sum(1), np.minimum(
+        (ids >= 0).sum(axis=(0, 2)), k))
+
+
 @pytest.mark.parametrize("s,q,kk,k", [(2, 8, 10, 10), (3, 25, 41, 10),
                                       (5, 64, 10, 41), (1, 6, 7, 7)])
 def test_merge_topk_ties_signed_zeros_nan(s, q, kk, k):
