@@ -161,6 +161,45 @@ not 0):
              index file, WAL bytes and records, segment bytes, peak device
              memory, and the launch counts over the recovered reads, set
              to 0 just before each and read just after.
+12. serving ops — the serving-ops layer on the handles above, one line a
+             step with the launch counts set to 0 just before it and read
+             just after. Its live steps run where those handles hold
+             their phase's state: (b) on phase 8's live handle before its
+             compaction and on phase 10's sharded live handle before
+             theirs, a hooked service serves the routed batches and one
+             `RecallAuditor` pass replays its reservoir through the exact
+             `prefilter` oracle on a pinned snapshot, every audited
+             query's exact keys equal to the phase's exact read
+             (`fused_live`, and `merge_topk` across the shards, launched);
+             after phase 8's compaction, (c) a `SemanticResultCache` in
+             front of `RouterService(live, router)`: an upsert carrying a
+             cached AND entry's labels evicts it as stale while an entry
+             over disjoint labels still hits; (e) a traced exact search
+             on that live handle, fused and staged, with the span tree
+             search → execute → group → live.base / live.delta (/
+             live.merge), each span's host ms beside the device ms between
+             CUDA events at its open and close, and the ledger's live
+             gauges and `snapshot_pin` lease. Then, at the end, on phase
+             5's handle and router: (a) `RouterService` with `telemetry=`,
+             `tracer=`, `slo=` and `obslog=` (its log under `build/`),
+             decisions, ids and distance bits identical to the unhooked
+             service's, and the median seconds a batch of each over 5
+             passes; (b) one audit pass, exact keys equal to phase 5's
+             exact answers; (c) the cache behind `AsyncBatchQueue(
+             max_batch=32, max_wait_ms=5)`: 300 single queries from 8
+             threads (100 distinct, each twice, and 100 seeded
+             near-duplicates), every exact hit bit-identical to a fresh
+             search of its query, every semantic hit a cached neighbour's
+             rows with distances within 1e-4 of float64, the hits by kind
+             and the median hit and miss latency; (d) `constant_router`
+             over the IVF pair with ivf_gamma degraded (`DegradedMethod(
+             keep=2)`): `OnlineRouterAdapter` routes off it within 6
+             steps, no retrain; (e) a post-mortem dump, `metrics_text`
+             over every surface parsed strictly (no duplicate samples),
+             and one scrape of `MetricsServer` on 127.0.0.1 (/metrics and
+             /healthz answer 200). Everything the phase opens (the logs'
+             writer threads, the server, the cache, the queue, the
+             post-mortem handlers) is closed before the last line.
 
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON line (`merge_topk`'s row with `by_input`: each input kind's ms,
@@ -179,9 +218,11 @@ import os
 import shutil
 import subprocess
 import sys
+import re
 import tempfile
 import threading
 import time
+import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -202,6 +243,18 @@ from repro_torch.ann.live import (LiveFilteredIndex,  # noqa: E402
 from repro_torch.ann.predicates import (PREDICATES, Predicate,  # noqa: E402
                                         eval_predicate_np)
 from repro_torch.ann import graph  # noqa: E402
+from repro_torch.ann import trace as trace_mod  # noqa: E402
+from repro_torch.ann.cache import SemanticResultCache  # noqa: E402
+from repro_torch.ann.ledger import get_ledger  # noqa: E402
+from repro_torch.ann.metrics import (MetricsServer,  # noqa: E402
+                                     backpressure_health, metrics_text)
+from repro_torch.ann.obslog import PostmortemDumper, WideEventLog  # noqa: E402
+from repro_torch.ann.slo import Objective, SLOEngine  # noqa: E402
+from repro_torch.ann.telemetry import (DegradedMethod,  # noqa: E402
+                                       OnlineBenchmarkTable,
+                                       OnlineRouterAdapter, RecallAuditor,
+                                       TelemetrySink, constant_router)
+from repro_torch.ann.trace import Tracer  # noqa: E402
 from repro_torch.ann.registry import (all_methods,  # noqa: E402
                                       candidate_methods, get_method)
 from repro_torch.ann.service import (AsyncBatchQueue,  # noqa: E402
@@ -211,6 +264,7 @@ from repro_torch.ann.sharded import (ShardedFilteredIndex,  # noqa: E402
 from repro_torch.ann.store import IndexStore, WriteAheadLog  # noqa: E402
 from repro_torch.core import features as F  # noqa: E402
 from repro_torch.core.router import MLRouter  # noqa: E402
+from repro_torch.core.table import BenchmarkTable  # noqa: E402
 from repro_torch.data.ann_synth import (VALIDATION_SPECS,  # noqa: E402
                                         make_queries, synthesize)
 from repro_torch.kernels import _build  # noqa: E402
@@ -2456,6 +2510,519 @@ def time_sharded_live_kernels(live4, batches: dict, dev) -> dict:
 # ---------------------------------------------------------------------------
 # phase 11: durable storage
 # ---------------------------------------------------------------------------
+# phase 12: serving ops — the hooks, the auditor, the cache, adaptation,
+# spans, the ledger and /metrics
+# ---------------------------------------------------------------------------
+
+SERVE_RESERVOIR = 64          # audited samples a pass
+SERVE_PASSES = 5              # hooked / unhooked timing passes
+CACHE_DISTINCT = 100          # the cache phase's distinct queries
+CACHE_THRESHOLD = 0.98        # the semantic hit's cosine threshold
+CACHE_NOISE = 0.002           # near-duplicates: this times each query's
+#                               norm, as seeded Gaussian noise a dimension
+
+
+def serving_hooks(build_dir: str, tag: str) -> dict:
+    """A telemetry sink, a tracer, an SLO engine and a wide-event log
+    (its file under `build_dir`), as a service takes them."""
+    tracer = Tracer(slow_ms=None, sample=1.0, flight_capacity=16, seed=7)
+    return {
+        "telemetry": TelemetrySink(capacity=4096,
+                                   reservoir=SERVE_RESERVOIR, seed=0),
+        "tracer": tracer,
+        "slo": SLOEngine([Objective(name="latency_p99", kind="latency",
+                                    target=0.99, threshold_us=50_000.0),
+                          Objective(name="availability",
+                                    kind="availability", target=0.999),
+                          Objective(name="recall_floor", kind="recall",
+                                    target=0.9, floor=0.5)],
+                         min_events=1, tracer=tracer),
+        "obslog": WideEventLog(os.path.join(build_dir, f"{tag}.jsonl"))}
+
+
+def query_index(batches: dict) -> dict:
+    """(pred, vector bytes) -> the query's row in its batch."""
+    return {(int(p), b.vectors[i].tobytes()): i
+            for p, b in batches.items() for i in range(b.q)}
+
+
+def audit_and_hold(auditor, where: dict, want_keys: dict, what: str
+                   ) -> dict:
+    """One `run_once` pass with the launch counts set to 0 just before and
+    read just after; every audited sample's exact keys equal `want_keys`
+    (pred -> [Q, k] keys of the phase's exact read) at its query's row.
+    Returns the pass's report fields."""
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = auditor.run_once()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if rep["samples"] == 0:
+        raise AssertionError(f"{what}: the audit had no samples")
+    for s, _r, ex in rep["results"]:
+        row = where[(int(s.pred), s.vector.tobytes())]
+        if not np.array_equal(np.asarray(ex), want_keys[int(s.pred)][row]):
+            raise AssertionError(f"{what}: an audited query's exact keys "
+                                 f"differ from the exact read's")
+    return {"samples": rep["samples"], "seconds": seconds,
+            "launches": launches, "recall_by_cell": {
+                c: v["recall"] for c, v in rep["cells"].items()},
+            "exact_keys": "equal to the exact read"}
+
+
+def run_serving_audit_live(handle, router, routed: dict, want_ids: dict,
+                           build_dir: str, label: str, kernel: str) -> dict:
+    """Phase 12 (b) on a live handle in its phase's state: a hooked
+    service of `router` serves the routed batches (the sink's reservoir
+    samples them), then one audit pass, whose exact keys must equal the
+    handle's keys of the phase's exact ids `want_ids`; the pass must
+    launch `kernel`."""
+    svc_cls = (ShardedRouterService if isinstance(handle, ShardedLiveIndex)
+               else RouterService)
+    hooks = serving_hooks(build_dir, label)
+    hooked = svc_cls(handle, router, t=0.9, **hooks)
+    for b in routed.values():
+        hooked.search(b)
+    table = OnlineBenchmarkTable(router.table)
+    auditor = RecallAuditor(handle, hooks["telemetry"], table=table,
+                            slo=hooks["slo"])
+    want = {p: handle.keys_of(ids) for p, ids in want_ids.items()}
+    out = audit_and_hold(auditor, query_index(routed), want, label)
+    hooks["obslog"].close()
+    if out["launches"][kernel] == 0:
+        raise AssertionError(f"{label}: the audit never launched {kernel}")
+    emit(f"serving.audit.{label}", table_version=table.version,
+         slo=hooks["slo"].stats(), **out)
+    return out["launches"]
+
+
+def time_median(fn, passes: int) -> float:
+    times = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def run_serving_hooked(fx, svc, routed: dict, hooks: dict) -> tuple:
+    """Phase 12 (a): `RouterService` with every hook on the phase-5
+    handle and router; each routed batch's decisions, ids and distance
+    bits equal the unhooked service's, and the median wall time a batch
+    over SERVE_PASSES passes of each. Returns (the hooked service, a
+    summary with the launch counts of its first pass)."""
+    want = {p: svc.search(b) for p, b in routed.items()}
+    hooked = RouterService(fx, svc.router, t=0.9, **hooks)
+    reset_launches()
+    got = {p: hooked.search(b) for p, b in routed.items()}
+    launches = read_launches()
+    for p, res in got.items():
+        if not (res.decisions == want[p].decisions
+                and same_bits(res, want[p])):
+            raise AssertionError(f"hooked routed answers differ from the "
+                                 f"unhooked, {PRED_NAMES[p]}")
+    med = {}
+    for name, s in (("unhooked", svc), ("hooked", hooked),
+                    ("unhooked_again", svc)):
+        med[name] = {PRED_NAMES[p]: time_median(lambda: s.search(b),
+                                                SERVE_PASSES)
+                     for p, b in routed.items()}
+    hooks["obslog"].flush()
+    summary = {"same_as_unhooked": "bit-identical", "launches": launches,
+               "median_batch_s": med, "passes": SERVE_PASSES,
+               "sink": hooks["telemetry"].stats(),
+               "obslog": hooks["obslog"].stats(),
+               "slo_state": hooks["slo"].state()}
+    if launches["selectivity"] == 0:
+        raise AssertionError("hooked serving never launched selectivity")
+    return hooked, summary
+
+
+def cache_workload(routed: dict, seed: int = 5) -> list:
+    """CACHE_DISTINCT distinct queries (the routed batches' first rows,
+    the three predicates in turn), each twice, and a seeded near-duplicate
+    of each, in a seeded order: (kind, pred, distinct index, vector,
+    bitmap)."""
+    rng = np.random.default_rng(seed)
+    preds = list(routed)
+    out = []
+    for j in range(CACHE_DISTINCT):
+        p = preds[j % len(preds)]
+        b = routed[p]
+        v, bm = b.vectors[j // len(preds)], b.bitmaps[j // len(preds)]
+        noise = rng.standard_normal(v.shape).astype(np.float32)
+        near = (v + CACHE_NOISE * float(np.linalg.norm(v))
+                / np.sqrt(v.size) * noise).astype(np.float32)
+        out += [("first", p, j, v, bm), ("again", p, j, v, bm),
+                ("near", p, j, near, bm)]
+    order = rng.permutation(len(out))
+    return [out[i] for i in order]
+
+
+def run_serving_cache(fx, hooked, routed: dict, threads: int = 8) -> tuple:
+    """Phase 12 (c): `SemanticResultCache(hooked)` behind
+    `AsyncBatchQueue(max_batch=32, max_wait_ms=5)`, 300 single queries
+    from `threads` threads. Every exact hit bit-identical to a fresh
+    search of its query; every semantic hit the row set of a cached
+    same-bitmap neighbour past the threshold, with distances within 1e-4
+    relative of a float64 recompute. Returns (the cache, the queue, a
+    summary)."""
+    work = cache_workload(routed)
+    cache = SemanticResultCache(hooked, threshold=CACHE_THRESHOLD,
+                                capacity=1024)
+    queue = AsyncBatchQueue(cache, max_batch=32, max_wait_ms=5)
+    got = [None] * len(work)
+    lat = [0.0] * len(work)
+
+    def submit(t):
+        for i in range(t, len(work), threads):
+            _kind, p, _j, v, bm = work[i]
+            t0 = time.perf_counter()
+            got[i] = queue.submit(v, bm, p).result(timeout=300)
+            lat[i] = time.perf_counter() - t0
+
+    reset_launches()
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=submit, args=(t,))
+               for t in range(threads)]
+    for th in workers:
+        th.start()
+    for th in workers:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in workers):
+        raise AssertionError("cache submitters did not finish")
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    kinds, lat_by = {}, {"hit": [], "miss": []}
+    for (kind, p, j, v, bm), res, dt in zip(work, got, lat):
+        tag = res.cache or "miss"
+        kinds[tag] = kinds.get(tag, 0) + 1
+        lat_by["miss" if res.cache is None else "hit"].append(dt)
+        if res.cache == "exact":
+            fresh = hooked.search(QueryBatch(v[None], bm[None], p, 10))
+            if not (np.array_equal(res.ids, fresh.ids[0])
+                    and np.array_equal(res.keys, fresh.keys[0])
+                    and np.array_equal(res.distances.view(np.int32),
+                                       fresh.distances[0].view(np.int32))):
+                raise AssertionError("an exact cache hit differs from a "
+                                     "fresh search of its query")
+        elif res.cache == "semantic":
+            hold_semantic_hit(fx, work, got, p, v, bm, res)
+        elif res.cache is not None:
+            raise AssertionError(f"unexpected cache kind {res.cache!r}")
+    if kinds.get("exact", 0) == 0 or kinds.get("semantic", 0) == 0:
+        raise AssertionError(f"the cache phase lacks a hit kind: {kinds}")
+    med = {k: (float(np.median(v)) * 1e3 if v else None)
+           for k, v in lat_by.items()}
+    summary = {"queries": len(work), "threads": threads, "seconds": seconds,
+               "launches": launches, "by_kind": kinds,
+               "median_ms": med, "cache": cache.stats(),
+               "queue": {k: v for k, v in queue.stats().items()
+                         if k != "telemetry"},
+               "exact_hits": "bit-identical to fresh searches",
+               "semantic_hits": "a cached neighbour's rows, distances "
+                                "within 1e-4 of float64"}
+    return cache, queue, summary
+
+
+def hold_semantic_hit(fx, work, got, p, v, bm, res) -> None:
+    """A semantic hit serves the row set of a cached query of the same
+    predicate and bitmap whose cosine to `v` clears the threshold, with
+    distances within 1e-4 relative of float64, ascending."""
+    vd = v.astype(np.float64)
+    cands = []
+    for (kind, p2, _j, v2, bm2), r2 in zip(work, got):
+        if (r2.cache is None and p2 == p and np.array_equal(bm2, bm)):
+            v2d = v2.astype(np.float64)
+            cos = vd @ v2d / (np.linalg.norm(vd) * np.linalg.norm(v2d))
+            if cos >= CACHE_THRESHOLD:
+                cands.append(set(r2.ids[r2.ids >= 0].tolist()))
+    ids = res.ids[res.ids >= 0]
+    if set(ids.tolist()) not in cands:
+        raise AssertionError("a semantic hit is no cached neighbour's rows")
+    d = ((fx.ds.vectors[ids].astype(np.float64) - vd) ** 2).sum(1)
+    got_d = res.distances[res.ids >= 0].astype(np.float64)
+    if (np.abs(got_d - d) > 1e-4 * np.maximum(d, 1e-12)).any():
+        raise AssertionError("a semantic hit's distances disagree with "
+                             "float64")
+    if (np.diff(got_d) < 0).any():
+        raise AssertionError("a semantic hit's rows are not sorted")
+
+
+def two_method_table(ds_name: str):
+    """The IVF pair's table of the adaptation check: both pass t = 0.9,
+    ivf_gamma with the better QPS (the JAX package's adaptation test)."""
+    table = BenchmarkTable.new()
+    cand = candidate_methods()
+    for pt in range(3):
+        for s in cand["ivf_gamma"].param_settings():
+            table.add(ds_name, pt, "ivf_gamma", s.ps_id, 0.97, 5000.0)
+        for s in cand["postfilter"].param_settings():
+            table.add(ds_name, pt, "postfilter", s.ps_id, 0.95, 500.0)
+    return table
+
+
+def run_serving_adaptation(fx, routed: dict) -> dict:
+    """Phase 12 (d): `constant_router` over the IVF pair, ivf_gamma
+    served through `DegradedMethod(keep=2)`; `OnlineRouterAdapter` with
+    a drift threshold no drift reaches must route the AND batch off the
+    degraded method within 6 steps, without a retrain."""
+    table = two_method_table(fx.ds.name)
+    router = constant_router(F.MINIMAL_FEATURES, ["ivf_gamma", "postfilter"],
+                             table)
+    serving = dict(candidate_methods())
+    serving["ivf_gamma"] = DegradedMethod(serving["ivf_gamma"], keep=2)
+    sink = TelemetrySink(capacity=1024, reservoir=SERVE_RESERVOIR, seed=5)
+    svc = RouterService(fx, router, t=0.9, methods=serving, telemetry=sink)
+    adapter = OnlineRouterAdapter(svc, sink, alpha=0.5, drift_threshold=2.0,
+                                  seed=0)
+    batch = routed[int(Predicate.AND)]
+    if {d.method for d in svc.route(batch)} != {"ivf_gamma"}:
+        raise AssertionError("the adaptation check does not start on "
+                             "ivf_gamma")
+    reset_launches()
+    t0 = time.perf_counter()
+    steps = []
+    for _ in range(6):
+        svc.search(batch)
+        rep = adapter.step()
+        routes = {d.method for d in svc.route(batch)}
+        steps.append({**rep, "routes": sorted(routes)})
+        if "ivf_gamma" not in routes:
+            break
+    launches = read_launches()
+    if "ivf_gamma" in steps[-1]["routes"]:
+        raise AssertionError(f"no reroute off the degraded method: {steps}")
+    if any(s["retrained"] for s in steps):
+        raise AssertionError("the adaptation check retrained")
+    return {"steps": steps, "rerouted_after": len(steps),
+            "seconds": time.perf_counter() - t0, "launches": launches,
+            "max_drift": adapter.table.max_drift()}
+
+
+@contextlib.contextmanager
+def span_device_events():
+    """While open, every span opened through `trace.span` records a CUDA
+    event at its open and at its close: the device time between the two
+    reads beside the span's host time. Yields {id(span): (span, start,
+    end)}."""
+    marks: dict = {}
+    enter, leave = trace_mod._SpanCtx.__enter__, trace_mod._SpanCtx.__exit__
+
+    def on_enter(self):
+        s = enter(self)
+        if s is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[id(s)] = [s, ev, None]
+        return s
+
+    def on_exit(self, et, ev, tb):
+        s = self._span
+        if s is not None and id(s) in marks:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            marks[id(s)][2] = end
+        return leave(self, et, ev, tb)
+
+    trace_mod._SpanCtx.__enter__, trace_mod._SpanCtx.__exit__ = (on_enter,
+                                                                 on_exit)
+    try:
+        yield marks
+    finally:
+        trace_mod._SpanCtx.__enter__ = enter
+        trace_mod._SpanCtx.__exit__ = leave
+
+
+def span_rows(root, marks: dict, depth: int = 0) -> list:
+    out = [{"span": "  " * depth + root.name,
+            "host_ms": root.duration_s * 1e3,
+            "device_ms": (marks[id(root)][1].elapsed_time(marks[id(root)][2])
+                          if id(root) in marks and marks[id(root)][2]
+                          else None)}]
+    for c in root.children:
+        out += span_rows(c, marks, depth + 1)
+    return out
+
+
+def span_paths(root, prefix: tuple = ()) -> set:
+    path = prefix + (root.name,)
+    out = {path}
+    for c in root.children:
+        out |= span_paths(c, path)
+    return out
+
+
+def exact_router(ds_name: str):
+    """A router whose one candidate is `prefilter` (exact search through
+    the service's route → execute → group spans)."""
+    table = BenchmarkTable.new()
+    for pt in range(3):
+        table.add(ds_name, pt, "prefilter", "exact", 1.0, 1.0)
+    return constant_router(F.MINIMAL_FEATURES, ["prefilter"], table)
+
+
+def run_serving_live_ops(live, router, routed: dict, build_dir: str) -> dict:
+    """Phase 12 on phase 8's live handle after its compaction: (c) a cache
+    in front of `RouterService(live, router)`, an upsert carrying the
+    labels of one cached AND entry stales it while an entry over disjoint
+    labels still hits; (e) a traced exact search, fused and staged, shows
+    search → execute → group → live.base / live.delta (/ live.merge),
+    each span's host ms beside the device ms between CUDA events at its
+    open and close; the ledger shows the live gauges, a pinned
+    snapshot's lease while pinned and none after its release."""
+    batch = routed[int(Predicate.AND)]
+    labels = [set(np.nonzero(np.unpackbits(batch.bitmaps[i].view(np.uint8),
+                                           bitorder="little"))[0].tolist())
+              for i in range(batch.q)]
+    a = 0
+    b = next(i for i in range(1, batch.q)
+             if labels[i] and labels[a] and not labels[i] & labels[a])
+    pair = QueryBatch(batch.vectors[[a, b]], batch.bitmaps[[a, b]],
+                      Predicate.AND, 10)
+    svc = RouterService(live, router, t=0.9)
+    cache = SemanticResultCache(svc, threshold=None)
+    reset_launches()
+    tags = [cache.search(pair).cache, cache.search(pair).cache]
+    live.upsert(pair.vectors[:1] + np.float32(0.01), pair.bitmaps[:1])
+    after = cache.search(pair)
+    tags.append(after.cache)
+    fresh = svc.search(pair)
+    launches = read_launches()
+    st = cache.stats()
+    cache.close()
+    if tags != [[None, None], ["exact", "exact"], [None, "exact"]] \
+            or st["evictions_stale"] != 1:
+        raise AssertionError(f"live cache staleness: tags {tags}, {st}")
+    if not np.array_equal(after.ids[0], fresh.ids[0]):
+        raise AssertionError("the refilled live entry differs from a "
+                             "fresh search")
+    emit("serving.cache.live", tags=tags, launches=launches,
+         stale_evicted=st["evictions_stale"], disjoint_labels_hit=True,
+         cache=st)
+
+    tracer = Tracer(seed=3)
+    exact_svc = RouterService(live, exact_router(live.ds.name), t=0.9,
+                              methods={"prefilter": get_method("prefilter")},
+                              tracer=tracer)
+    exact_svc.search(batch)                   # warm: features, tombstones
+    trees = {}
+    for mode in ("fused", "staged"):
+        live.fused = mode == "fused"
+        try:
+            torch.cuda.synchronize()
+            with span_device_events() as marks:
+                exact_svc.search(batch)
+                torch.cuda.synchronize()
+        finally:
+            live.fused = True
+        root = tracer.recent()[-1]
+        paths = span_paths(root)
+        need = {("search", "execute", "group", "live.base"),
+                ("search", "execute", "group", "live.delta")}
+        if mode == "staged":
+            need.add(("search", "execute", "group", "live.merge"))
+        if not need <= paths:
+            raise AssertionError(f"live span tree lacks {need - paths}")
+        trees[mode] = span_rows(root, marks)
+        emit(f"serving.spans.live_{mode}", tree=trees[mode],
+             device_ms="CUDA events at each span's open and close")
+    led = get_ledger()
+    mine = led.snapshot()["gauges"].get(live._ledger_key)
+    # one delta row: the mirror covers whole chunks only, so its device
+    # bytes read 0 until a chunk seals
+    if not mine or mine["delta_rows"] != 1 or mine["delta_host_bytes"] <= 0 \
+            or "delta_device_bytes" not in mine:
+        raise AssertionError(f"the ledger lacks the live gauges: {mine}")
+    snap = live.snapshot()
+    held = led.snapshot()["held"].get("snapshot_pin", {})
+    snap.release()
+    left = led.snapshot()["held"].get("snapshot_pin", {})
+    if sum(a["leases"] for a in held.values()) < 1 or left:
+        raise AssertionError(f"snapshot_pin leases: pinned {held}, after "
+                             f"release {left}")
+    emit("serving.ledger.live", gauges=mine, pinned_lease=held,
+         after_release=left or None)
+    return {"launches": launches}
+
+
+def parse_exposition(text: str) -> dict:
+    """Prometheus text format 0.0.4, strictly: HELP before TYPE once a
+    family, every sample under a typed family, well-formed names and
+    label sets, no duplicate samples, histogram buckets cumulative up to
+    a +Inf equal to _count. Returns {family: samples}."""
+    name_re = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+    helps, types, seen, fams = set(), {}, set(), {}
+    buckets: dict = {}
+    counts: dict = {}
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            name = line.split(" ")[2]
+            if name in helps:
+                raise AssertionError(f"two HELP lines for {name}")
+            helps.add(name)
+        elif line.startswith("# TYPE "):
+            _, _, name, mtype = line.split(" ")
+            if name not in helps or name in types:
+                raise AssertionError(f"TYPE of {name} out of order")
+            types[name] = mtype
+        else:
+            m = re.fullmatch(rf"({name_re})(\{{(.*)\}})? (\S+)", line)
+            if m is None:
+                raise AssertionError(f"unparseable sample {line!r}")
+            name, _, labels, value = m.groups()
+            base = re.sub(r"_(bucket|sum|count)$", "", name)
+            fam = base if types.get(base) == "histogram" else name
+            if fam not in types:
+                raise AssertionError(f"sample {name} without TYPE")
+            key = (name, labels)
+            if key in seen:
+                raise AssertionError(f"duplicate sample {key}")
+            seen.add(key)
+            float(value.replace("Inf", "inf"))
+            fams[fam] = fams.get(fam, 0) + 1
+            if name.endswith("_bucket"):
+                series = re.sub(r',?le="[^"]*"', "", labels or "")
+                buckets.setdefault((fam, series), []).append(
+                    float(value.replace("Inf", "inf")))
+            elif name.endswith("_count") and fam != name:
+                counts[(fam, labels or "")] = float(value)
+    for (fam, series), vals in buckets.items():
+        if vals != sorted(vals) or vals[-1] != counts[(fam, series)]:
+            raise AssertionError(f"histogram {fam}{{{series}}} is not "
+                                 f"cumulative up to its count")
+    return fams
+
+
+def run_serving_metrics(surfaces: dict, queue) -> dict:
+    """Phase 12 (e): `metrics_text` over every surface parses strictly
+    with no duplicate samples; one scrape of `MetricsServer` on
+    127.0.0.1:0 gets /metrics and /healthz with 200."""
+    text = metrics_text(**surfaces)
+    fams = parse_exposition(text)
+    srv = MetricsServer(lambda: metrics_text(**surfaces),
+                        health=backpressure_health(queue=queue),
+                        ledger=surfaces["ledger"], slo=surfaces["slo"],
+                        obslog=surfaces["obslog"])
+    try:
+        codes = {}
+        for route in ("/metrics", "/healthz"):
+            with urllib.request.urlopen(srv.url + route, timeout=30) as r:
+                codes[route] = r.status
+                body = r.read().decode()
+            if route == "/metrics":
+                parse_exposition(body)
+            elif json.loads(body)["status"] != "ok":
+                raise AssertionError(f"/healthz: {body}")
+    finally:
+        srv.close()
+    if codes != {"/metrics": 200, "/healthz": 200}:
+        raise AssertionError(f"scrape codes {codes}")
+    return {"families": len(fams), "samples": sum(fams.values()),
+            "bytes": len(text), "scrape": codes, "port": srv.port}
+
+
+# ---------------------------------------------------------------------------
 
 # The sharded store's methods: the IVF pair, built on each shard.
 IVF_PAIR = ("postfilter", "ivf_gamma")
@@ -3290,11 +3857,26 @@ def main() -> int:
     profile_phase("masked_topk_large_k1016", lambda: large_pass(1016))
     profile_phase("masked_topk_large_k200", lambda: large_pass(ANY_K))
 
+    # phase 12 (b) on the live handle in phase 8's state: an audit pass,
+    # its exact keys those of phase 8's exact reads
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    serve_dir = tempfile.mkdtemp(prefix="serving-",
+                                 dir=os.path.join(ROOT, "build"))
+    launches_serving = {"live": run_serving_audit_live(
+        live, svc.router, routed, want_live["truth"], serve_dir, "live",
+        "fused_live")}
+
     t0 = time.perf_counter()
     reset_launches()
     live_summary.update(run_live_compaction(live, ds, exact_batches))
     emit("live.compaction_path", seconds=time.perf_counter() - t0,
          launches=read_launches())
+    # phase 12 (c, e) on the compacted live handle: cache staleness under
+    # a write, the live span tree, the ledger's gauges and leases
+    t0 = time.perf_counter()
+    launches_serving["live_ops"] = run_serving_live_ops(
+        live, svc.router, routed, serve_dir)["launches"]
+    emit("serving.live", seconds=time.perf_counter() - t0)
     live.close()
 
     # phase 10, the sharded live index: phase 8's writes and the reference
@@ -3328,6 +3910,10 @@ def main() -> int:
         if launches_sl[name] == 0:
             raise AssertionError(f"the sharded live path never launched "
                                  f"{name}")
+    # phase 12 (b) on the sharded live handle in phase 10's state
+    launches_serving["sharded_live"] = run_serving_audit_live(
+        live4, svc.router, routed, single_live["truth"], serve_dir,
+        "sharded_live", "merge_topk")
     phase8 = {k: single_live[k] for k in ("fused", "decisions", "routed")}
     del single_live
     profile_phase("sharded_live_exact",
@@ -3375,11 +3961,66 @@ def main() -> int:
         if launches_store.get(name, 0) == 0:
             raise AssertionError(f"the recovered stores' reads never "
                                  f"launched {name}")
+    # phase 12, serving ops on the phase-5 handle and router: (a) hooked
+    # serving, (b) an audit, (c) the cache behind the queue, (d)
+    # adaptation, (e) /metrics; everything it opens closed before the end
+    t0 = time.perf_counter()
+    closers = []
+    try:
+        hooks = serving_hooks(serve_dir, "wide_events")
+        closers.append(hooks["obslog"].close)
+        hooked, hooked_summary = run_serving_hooked(fx, svc, routed, hooks)
+        launches_serving["hooked"] = hooked_summary["launches"]
+        emit("serving.hooked", **hooked_summary)
+
+        want_exact = {p: fx.search(b, "prefilter").keys
+                      for p, b in routed.items()}
+        table = OnlineBenchmarkTable(svc.router.table)
+        auditor = RecallAuditor(fx, hooks["telemetry"], table=table,
+                                slo=hooks["slo"])
+        audit = audit_and_hold(auditor, query_index(routed), want_exact,
+                               "sealed")
+        if audit["launches"]["masked_topk"] == 0:
+            raise AssertionError("the audit never launched masked_topk")
+        launches_serving["audit"] = audit["launches"]
+        emit("serving.audit.sealed", table_version=table.version,
+             slo=hooks["slo"].stats(), **audit)
+
+        cache, queue, cache_summary = run_serving_cache(fx, hooked, routed)
+        closers += [cache.close, queue.close]
+        launches_serving["cache"] = cache_summary["launches"]
+        emit("serving.cache", **cache_summary)
+
+        adapt = run_serving_adaptation(fx, routed)
+        launches_serving["adaptation"] = adapt["launches"]
+        emit("serving.adaptation", **adapt)
+
+        dumper = PostmortemDumper(tracer=hooks["tracer"],
+                                  ledger=get_ledger(), slo=hooks["slo"],
+                                  obslog=hooks["obslog"],
+                                  out_dir=serve_dir).install()
+        closers.append(dumper.uninstall)
+        with open(dumper.dump("chip_smoke")) as f:
+            sections = sorted(json.load(f))
+        surfaces = dict(sink=hooks["telemetry"], tracer=hooks["tracer"],
+                        cache=cache, queue=queue, ledger=get_ledger(),
+                        slo=hooks["slo"], obslog=hooks["obslog"],
+                        table=table)
+        emit("serving.metrics", postmortem_sections=sections,
+             **run_serving_metrics(surfaces, queue))
+    finally:
+        for close in reversed(closers):
+            close()
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    emit("serving", seconds=time.perf_counter() - t0,
+         launches=launches_serving)
+    serving_total = {name: sum(c[name] for c in launches_serving.values())
+                     for name in KERNEL_WRAPPERS}
     launches_by_path = {"main": launches, "sharded": launches_sharded,
                         "queue": launches_queue, "multiblock": launches_mb,
                         "live": launches_live, "live_staged": launches_staged,
                         "anyk": launches_anyk, "sharded_live": launches_sl,
-                        "store": launches_store}
+                        "store": launches_store, "serving": serving_total}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []

@@ -4,7 +4,11 @@ the six filtered-ANN methods and the serving surface (`FilteredIndex` +
 `ShardedFilteredIndex`, made writable by `LiveFilteredIndex`/
 `ShardedLiveIndex`, and made durable by `IndexStore` — segment files,
 write-ahead log, stable external keys, crash recovery — in the JAX
-package's on-disk formats; `Span`/`Tracer` from `trace`).
+package's on-disk formats), and the serving-ops layer: `Span`/`Tracer`
+from `trace`, `SemanticResultCache` from `cache`, `TelemetrySink`/
+`RecallAuditor`/`OnlineBenchmarkTable`/`OnlineRouterAdapter` from
+`telemetry`, `SLOEngine` from `slo`, `WideEventLog` from `obslog`, and
+`metrics_text`/`MetricsServer` from `metrics`.
 
 The names below resolve on first use, so importing any one module of the
 package (a kernel wrapper, say) does not import the whole serving stack
@@ -18,7 +22,13 @@ _EXPORTS = {"Predicate": "predicates", "ANNDataset": "dataset",
             "ShardedFilteredIndex": "sharded",
             "LiveFilteredIndex": "live", "LiveSnapshot": "live",
             "ShardedLiveIndex": "live", "IndexStore": "store",
-            "WriteAheadLog": "store", "Span": "trace", "Tracer": "trace"}
+            "WriteAheadLog": "store", "Span": "trace", "Tracer": "trace",
+            "SemanticResultCache": "cache", "TelemetrySink": "telemetry",
+            "RecallAuditor": "telemetry",
+            "OnlineBenchmarkTable": "telemetry",
+            "OnlineRouterAdapter": "telemetry", "SLOEngine": "slo",
+            "Objective": "slo", "WideEventLog": "obslog",
+            "metrics_text": "metrics", "MetricsServer": "metrics"}
 
 __all__ = list(_EXPORTS)
 

@@ -111,12 +111,18 @@ class SearchResult:
       `total_s`);
     * `keys` — [Q, k] int64 stable external keys (−1 pad); for a sealed
       index they equal the row ids.
+    * `cache` — per-query serving provenance when a
+      `repro_torch.ann.cache.SemanticResultCache` fronted the request: a
+      [Q] list of ``"exact"`` / ``"semantic"`` / ``"transfer"`` / None
+      (None for a query that missed and was searched). None (default)
+      means no cache was involved.
     """
     ids: np.ndarray
     distances: np.ndarray
     decisions: list[RoutingDecision] | None = None
     timings: dict = dataclasses.field(default_factory=dict)
     keys: np.ndarray | None = None
+    cache: list | None = None
 
     @property
     def q(self) -> int:
@@ -260,11 +266,23 @@ class FilteredIndex:
         `LiveFilteredIndex.compact` replays these against the new base."""
         return list(self._indexes.keys())
 
+    @property
+    def generation(self) -> int:
+        """A sealed index never remaps rows — constant 0, mirroring the
+        live handles so telemetry events carry a uniform field."""
+        return 0
+
     def keys_of(self, ids) -> np.ndarray:
         """Stable external keys for result ids (−1 stays −1): a sealed
         index never remaps rows, so keys are the row ids."""
         ids = np.asarray(ids, dtype=np.int64)
         return np.where(ids >= 0, ids, np.int64(-1))
+
+    def label_clock(self, labels=None) -> int:
+        """Sealed data never changes — constant 0, mirroring the live
+        handles' per-label write clock so the result cache's staleness
+        check (`repro_torch.ann.cache`) reads one uniform surface."""
+        return 0
 
     def evict(self, method_name: str | None = None) -> int:
         """Drop built indexes (all of one method, or every method).

@@ -15,10 +15,9 @@ complementary mechanisms:
   returns every lease held past a configurable age.
 * **Collectors** — zero-hot-path-cost pull gauges.  A subsystem
   registers a callable returning ``{gauge_name: number}``; the ledger
-  invokes it only at :meth:`snapshot` / scrape time, so attaching the
-  ledger costs the serve path nothing.  In this package the WAL's fsync
-  backlog reports this way; the live handles' gauges and leases, the
-  cache's and the queue's are not wired yet.
+  invokes it only at :meth:`snapshot` / scrape time.  Delta/device
+  bytes, cache entries/bytes, WAL backlog and queue depth all report
+  this way, so attaching the ledger costs the serve path nothing.
 
 A process-wide default ledger (:func:`get_ledger`) lets deep layers
 (live index, WAL) register without threading a handle through every

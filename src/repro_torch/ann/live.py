@@ -56,10 +56,22 @@ reads (live per-label counts and exact live selectivity corrections).
 Both handles take a write-ahead log (`attach_wal`): every write is
 logged before the state mutates and made durable off the write lock, and
 each compaction logs a barrier at its snapshot point, so
-`repro_torch.ann.store.IndexStore` replays a handle exactly. Not ported
-yet from the JAX package's module: the live handles' resource-ledger
-gauges and leases (snapshot pins, retired generations) and their trace
-spans (`live.base`/`live.delta`/`live.merge` and the `shard` span).
+`repro_torch.ann.store.IndexStore` replays a handle exactly.
+
+Both report to the serving-ops layer as the JAX package's do. A
+`LiveFilteredIndex` registers pull gauges on the process resource ledger
+(`repro_torch.ann.ledger`: generation, delta rows and bytes on the host
+and on the device, tombstones, pinned readers, retired generations),
+holds a `snapshot_pin` lease for every snapshot until its release and a
+`retired_generation` lease for every superseded base that readers still
+pin. Under an active trace (`repro_torch.ann.trace`) a read opens
+`live.base` (annotated with the base overfetch), `live.delta` and, on
+the staged path, `live.merge`; `ShardedLiveIndex` opens one `shard` span
+a shard. These spans keep the JAX package's boundaries and read the
+host's clock: on a card a span around a launch measures the enqueue plus
+any device-to-host copy inside it (the read's results come back to the
+host within `live.base` and `live.delta`), not the device's own time.
+No span adds a synchronisation of its own.
 """
 
 from __future__ import annotations
@@ -74,7 +86,9 @@ import torch
 
 from repro_torch.ann import engine as engine_mod
 from repro_torch.ann import labels as lb
+from repro_torch.ann import ledger as ledger_mod
 from repro_torch.ann import registry as registry_mod
+from repro_torch.ann import trace
 from repro_torch.ann.dataset import ANNDataset
 from repro_torch.ann.distributed import shard_bounds, shard_devices
 from repro_torch.ann.engine import ParamSetting, resolve_setting, to_device
@@ -421,6 +435,15 @@ class DeltaSegment:
     def device_rows(self) -> int:
         return self._dev_rows
 
+    def host_bytes(self) -> int:
+        """Allocated host backing (includes growth headroom)."""
+        return self._vec.nbytes + self._bm.nbytes + self._norms.nbytes
+
+    def device_bytes(self) -> int:
+        """Mirror footprint: vectors + norms + bitmaps per covered row
+        (the segment's own tensors, not the process's device total)."""
+        return self._dev_rows * (self.dim * 4 + 4 + self.width * 4)
+
     def drop_device(self) -> None:
         with self._dev_lock:
             self._dev = None
@@ -619,7 +642,7 @@ class LiveSnapshot:
 
     __slots__ = ("generation", "base_n", "delta_rows", "tombstones",
                  "tombstone_version", "delta", "keys", "next_key",
-                 "_owner", "_released")
+                 "_owner", "_released", "_lease")
 
     def __init__(self, owner, generation, base_n, delta_rows, tombstones,
                  tombstone_version, delta, keys, next_key):
@@ -633,6 +656,7 @@ class LiveSnapshot:
         self.next_key = next_key
         self._owner = owner
         self._released = False
+        self._lease = None          # ledger pin, set by snapshot()
 
     @property
     def n_total(self) -> int:
@@ -649,6 +673,8 @@ class LiveSnapshot:
             if self._released:
                 return
             self._released = True
+        if self._lease is not None:
+            self._lease.release()
         self._owner._release_reader(self.generation)
 
     def __enter__(self) -> "LiveSnapshot":
@@ -747,6 +773,7 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
         self._lock = threading.RLock()
         self._readers: dict[int, int] = {}      # generation -> pin count
         self._retired: dict[int, FilteredIndex | None] = {}
+        self._retired_leases: dict[int, object] = {}   # gen -> ledger lease
         self._compact_pool: ThreadPoolExecutor | None = None
         self._compacting: Future | None = None
         self._last_remap: np.ndarray | None = None
@@ -760,6 +787,25 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
         self._prune_stats = {"calls": 0, "clusters": 0, "pruned": 0,
                              "label_pruned": 0}
         self._closed = False
+        # delta/device bytes + reader pins as pull gauges on the process
+        # ledger (collected only at scrape/snapshot time)
+        self._ledger_key = f"live:{self._name}:{id(self):x}"
+        ledger_mod.get_ledger().register_collector(
+            self._ledger_key, self._ledger_gauges)
+
+    def _ledger_gauges(self) -> dict:
+        with self._lock:
+            if self._closed:
+                return {"closed": 1}
+            d = self._delta
+            return {"generation": self._generation,
+                    "delta_rows": d.rows,
+                    "delta_host_bytes": d.host_bytes(),
+                    "delta_device_rows": d.device_rows(),
+                    "delta_device_bytes": d.device_bytes(),
+                    "tombstones": int(self._tomb.sum()),
+                    "pinned_readers": sum(self._readers.values()),
+                    "retired_generations": len(self._retired)}
 
     @classmethod
     def empty(cls, name: str, dim: int, universe: int,
@@ -846,6 +892,7 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
         """Stop the handle: wait out a running compaction (its swap is
         skipped once closed), close the base of every generation, drop
         the delta device mirror. Idempotent."""
+        ledger_mod.get_ledger().deregister_collector(self._ledger_key)
         with self._lock:
             if self._closed:
                 return
@@ -863,6 +910,9 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                 if fx is not None:
                     fx.close()
             self._retired.clear()
+            for lease in self._retired_leases.values():
+                lease.release()
+            self._retired_leases.clear()
             self._delta.drop_device()
             self._tomb_words_cache = None
             self._features = None
@@ -1022,11 +1072,16 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
             # (concatenate on upsert, fresh array at the compaction
             # swap), never written in place; tombstones mutate in place
             # and must copy
-            return LiveSnapshot(self, gen, self._base_n, rows,
+            snap = LiveSnapshot(self, gen, self._base_n, rows,
                                 self._tomb[: self._base_n + rows].copy(),
                                 self._tomb_version, self._delta,
                                 self._keys[: self._base_n + rows],
                                 self._next_key)
+        # the pin lease carries the acquiring trace id + caller stack —
+        # a snapshot held past the ledger's leak age names its taker
+        snap._lease = ledger_mod.get_ledger().acquire(
+            "snapshot_pin", self._name, meta={"generation": int(gen)})
+        return snap
 
     def _release_reader(self, gen: int) -> None:
         with self._lock:
@@ -1035,7 +1090,12 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                 self._readers[gen] = left
                 return
             self._readers.pop(gen, None)
+            had_retired = gen in self._retired
             fx = self._retired.pop(gen, None)
+            lease = (self._retired_leases.pop(gen, None)
+                     if had_retired else None)
+        if lease is not None:
+            lease.release()
         if fx is not None:
             fx.close()
 
@@ -1095,6 +1155,7 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
         k = batch.k
         kb = (max(k, min(_bucket(k + base_dead), snap.base_n))
               if base_dead else k)
+        trace.annotate(overfetch=int(kb))
         b_ids, b_raw = fx.run_method(
             self._resolve(method), setting,
             QueryBatch(batch.vectors, batch.bitmaps, batch.pred, kb))
@@ -1110,30 +1171,34 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
         dev = self.torch_device
         base_dead = int(snap.tombstones[: snap.base_n].sum())
         t0 = time.perf_counter()
-        b_ids, b_raw = self._run_base(method, setting, batch, snap,
-                                      base_dead)
+        with trace.span("live.base", base_n=int(snap.base_n),
+                        dead=base_dead):
+            b_ids, b_raw = self._run_base(method, setting, batch, snap,
+                                          base_dead)
         t1 = time.perf_counter()
-        dvec, dnorm, dbm = snap.delta.device_view(snap.delta_rows)
-        tomb_words = self._tomb_words(snap)
-        sel = self._delta_select(snap, batch, b_ids, b_raw)
-        if sel is not None and sel.size == 0:
-            # every sealed cluster was pruned and there is no tail row;
-            # one pruned row keeps the operand non-empty (it provably
-            # cannot displace any query's top-k)
-            sel = np.zeros(1, np.int32)
-        args = (to_device(batch.vectors, dev), to_device(batch.bitmaps, dev),
-                to_device(b_ids, dev), to_device(b_raw, dev), dvec, dnorm,
-                dbm)
-        if sel is None:
-            ids, raw = ops.fused_live_topk(
-                *args, snap.base_n, tomb_words, pred=int(batch.pred),
-                k=batch.k)
-        else:
-            ids, raw = ops.fused_live_topk_select(
-                *args, to_device(sel, dev), snap.base_n, tomb_words,
-                pred=int(batch.pred), k=batch.k)
-        ids = ids.cpu().numpy()
-        raw = raw.cpu().numpy()
+        with trace.span("live.delta", rows=int(snap.delta_rows),
+                        fused=True):
+            dvec, dnorm, dbm = snap.delta.device_view(snap.delta_rows)
+            tomb_words = self._tomb_words(snap)
+            sel = self._delta_select(snap, batch, b_ids, b_raw)
+            if sel is not None and sel.size == 0:
+                # every sealed cluster was pruned and there is no tail
+                # row; one pruned row keeps the operand non-empty (it
+                # provably cannot displace any query's top-k)
+                sel = np.zeros(1, np.int32)
+            args = (to_device(batch.vectors, dev),
+                    to_device(batch.bitmaps, dev), to_device(b_ids, dev),
+                    to_device(b_raw, dev), dvec, dnorm, dbm)
+            if sel is None:
+                ids, raw = ops.fused_live_topk(
+                    *args, snap.base_n, tomb_words, pred=int(batch.pred),
+                    k=batch.k)
+            else:
+                ids, raw = ops.fused_live_topk_select(
+                    *args, to_device(sel, dev), snap.base_n, tomb_words,
+                    pred=int(batch.pred), k=batch.k)
+            ids = ids.cpu().numpy()
+            raw = raw.cpu().numpy()
         t2 = time.perf_counter()
         self._stage_add({"base_s": t1 - t0, "delta_s": t2 - t1,
                          "merge_s": 0.0})    # the merge happens in-kernel
@@ -1151,8 +1216,10 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
         parts = []
         t0 = time.perf_counter()
         if snap.base_n:
-            b_ids, b_raw = self._run_base(method, setting, batch, snap,
-                                          base_dead)
+            with trace.span("live.base", base_n=int(snap.base_n),
+                            dead=base_dead):
+                b_ids, b_raw = self._run_base(method, setting, batch,
+                                              snap, base_dead)
             if base_dead:
                 valid = b_ids >= 0
                 dead = np.zeros_like(valid)
@@ -1166,12 +1233,15 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
             # exact overfetch: top-(k + dead) over the delta always
             # contains the live top-k
             kd = _bucket(k + min(delta_dead, snap.delta_rows))
-            dvec, dnorm, dbm = snap.delta.device_view(snap.delta_rows)
-            d_ids, d_raw = ops.masked_topk(
-                to_device(batch.vectors, dev), to_device(batch.bitmaps, dev),
-                dvec, dnorm, dbm, pred=int(batch.pred), k=kd)
-            d_ids = d_ids.cpu().numpy()
-            d_raw = d_raw.cpu().numpy()
+            with trace.span("live.delta", rows=int(snap.delta_rows),
+                            overfetch=int(kd), fused=False):
+                dvec, dnorm, dbm = snap.delta.device_view(snap.delta_rows)
+                d_ids, d_raw = ops.masked_topk(
+                    to_device(batch.vectors, dev),
+                    to_device(batch.bitmaps, dev),
+                    dvec, dnorm, dbm, pred=int(batch.pred), k=kd)
+                d_ids = d_ids.cpu().numpy()
+                d_raw = d_raw.cpu().numpy()
             # sentinel/pad rows are already −1; rows past the watermark
             # (appended since the snapshot) and tombstoned rows drop here
             valid = (d_ids >= 0) & (d_ids < snap.delta_rows)
@@ -1186,8 +1256,9 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
             ids = np.full((batch.q, k), -1, np.int32)
             raw = np.full((batch.q, k), np.inf, np.float32)
         else:
-            ids, raw = merge_candidates(*stack_candidates(parts), k=k,
-                                        device=self.torch_device)
+            with trace.span("live.merge"):
+                ids, raw = merge_candidates(*stack_candidates(parts), k=k,
+                                            device=self.torch_device)
         t3 = time.perf_counter()
         self._stage_add({"base_s": t1 - t0, "delta_s": t2 - t1,
                          "merge_s": t3 - t2})
@@ -1502,6 +1573,15 @@ class LiveFilteredIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                     # record the retirement even for an empty base (None)
                     # so pinned snapshots of generation 0 stay resolvable
                     self._retired[old_gen] = old_base
+                    old_ds = (old_base.ds if old_base is not None
+                              else None)
+                    self._retired_leases[old_gen] = \
+                        ledger_mod.get_ledger().acquire(
+                            "retired_generation", self._name,
+                            bytes=(old_ds.vectors.nbytes
+                                   + old_ds.bitmaps.nbytes
+                                   if old_ds is not None else 0),
+                            meta={"generation": int(old_gen)})
                 elif old_base is not None:
                     old_base.close()
                 return self._generation
@@ -1995,6 +2075,7 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
         and `delta_s` of the slowest shard, `shard{j}_s` and
         `shard_max_s`."""
         inline = self._pool is None
+        parent = trace.current()
         times = [0.0] * len(snap.shards)
 
         def shard_run(jsv):
@@ -2004,7 +2085,10 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
             j, (shard, ssnap) = jsv
             saved = engine_mod.pop_stage_timings() if inline else {}
             s0 = time.perf_counter()
-            out = shard.run_method(method, setting, batch, snapshot=ssnap)
+            with trace.attach(parent):
+                with trace.span("shard", shard=j):
+                    out = shard.run_method(method, setting, batch,
+                                           snapshot=ssnap)
             times[j] = time.perf_counter() - s0
             got = shard.pop_stage_timings()
             self._stage_add(saved)
@@ -2074,9 +2158,12 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
                 s.close()
 
     def search(self, batch: QueryBatch, method,
-               setting: ParamSetting | str | None = None) -> SearchResult:
+               setting: ParamSetting | str | None = None, *,
+               snapshot: ShardedLiveSnapshot | None = None) -> SearchResult:
         """Direct single-method sharded live search (no routing); the
-        result carries the rows' stable `keys`."""
+        result carries the rows' stable `keys`. `snapshot=` reads a
+        pinned epoch, as on `LiveFilteredIndex.search` (the recall
+        auditor pins one for all of a pass's groups)."""
         self._check_open()
         if isinstance(method, str):
             reg = self._registry or registry_mod.default_registry()
@@ -2085,12 +2172,13 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
             setting = resolve_setting(method, setting)
         self.pop_stage_timings()
         t0 = time.perf_counter()
-        snap = self.snapshot()
+        snap = snapshot if snapshot is not None else self.snapshot()
         try:
             ids, raw = self.run_method(method, setting, batch, snapshot=snap)
             keys = self.keys_of(ids, snapshot=snap)
         finally:
-            snap.release()
+            if snapshot is None:
+                snap.release()
         dt = time.perf_counter() - t0
         timings = {"search_s": dt, "total_s": dt}
         timings.update(self.pop_stage_timings())

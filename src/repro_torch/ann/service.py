@@ -28,9 +28,15 @@ Both serve the live handles of `repro_torch.ann.live` as they serve a
 sealed one: a routed batch reads one snapshot of a `LiveFilteredIndex`,
 or one cross-shard snapshot of a `ShardedLiveIndex`.
 
-The JAX package's services also take `telemetry=`, `tracer=`, `slo=` and
-`obslog=` hooks, and its queue probes a semantic cache and reports to a
-resource ledger; those serving-ops layers are not ported yet.
+The serving-ops hooks are the JAX package's: a service takes
+`telemetry=` (`repro_torch.ann.telemetry.TelemetrySink`), `tracer=`
+(`repro_torch.ann.trace.Tracer`), `slo=` (`repro_torch.ann.slo.SLOEngine`)
+and `obslog=` (`repro_torch.ann.obslog.WideEventLog`); the queue probes a
+`repro_torch.ann.cache.SemanticResultCache` backend before batching,
+reports its depth to the resource ledger and opens one `request` trace
+root per group. Each hook is None by default and then costs nothing.
+`search_s` is the host clock around work whose result has reached the
+host; no hook adds a device synchronisation.
 """
 
 from __future__ import annotations
@@ -45,10 +51,13 @@ from typing import NamedTuple
 import numpy as np
 
 from repro_torch.ann import engine
+from repro_torch.ann import ledger as ledger_mod
 from repro_torch.ann import registry as registry_mod
+from repro_torch.ann import trace
 from repro_torch.ann.index import (FilteredIndex, QueryBatch, RoutingDecision,
                                    SearchResult, exact_distances)
 from repro_torch.ann.live import ShardedLiveIndex
+from repro_torch.ann.obslog import request_events
 from repro_torch.ann.predicates import Predicate
 from repro_torch.ann.sharded import ShardedFilteredIndex
 
@@ -78,19 +87,44 @@ class RouterService:
             overridable via the `t=` kwarg on search/route/explain).
         methods: optional Mapping name -> Method overriding the default
             candidate-registry view.
+        telemetry: optional `repro_torch.ann.telemetry.TelemetrySink`;
+            when set, every executed batch records per-query events
+            (method, ps, predicate, k, latency share, live generation)
+            and offers queries to the audit reservoir.
+        tracer: optional `repro_torch.ann.trace.Tracer`; when set,
+            `search` opens a request-scoped span tree (route → execute →
+            per-group / live-stage spans) with tail-based sampling and
+            the flight recorder. None keeps the span calls no-ops.
+        slo: optional `repro_torch.ann.slo.SLOEngine`; every executed
+            batch folds latency/error observations into its windows and
+            stamps the router's table version as alert provenance.
+        obslog: optional `repro_torch.ann.obslog.WideEventLog`; every
+            served query emits one wide event (trace id, route decision,
+            timings, generation, table version, SLO state).
     """
 
     def __init__(self, index: FilteredIndex, router, *, t: float = 0.9,
-                 methods=None):
+                 methods=None, telemetry=None, tracer=None, slo=None,
+                 obslog=None):
         self.index = index
         self.router = router
         self.t = float(t)
         self.methods = (methods if methods is not None
                         else registry_mod.candidate_methods())
+        self.telemetry = telemetry
+        self.tracer = tracer
+        self.slo = slo
+        self.obslog = obslog
 
     @property
     def ds(self):
         return self.index.ds
+
+    def _table_version(self):
+        """The routing table's version (an `OnlineBenchmarkTable`'s), or
+        None for a plain table — or no router, for a service that only
+        executes given decisions."""
+        return getattr(getattr(self.router, "table", None), "version", None)
 
     # ---- routing ---------------------------------------------------------
     def predict(self, batch: QueryBatch) -> np.ndarray:
@@ -102,7 +136,11 @@ class RouterService:
               t: float | None = None) -> list[RoutingDecision]:
         """Per-query `RoutingDecision`s without executing the searches
         (Algorithm 2 at threshold `t`, default the service's)."""
-        return self._decide(self.predict(batch), batch, t)
+        with trace.span("route", q=batch.q):
+            r_hat = self.predict(batch)
+            decisions = self._decide(r_hat, batch, t)
+            trace.annotate(table_version=self._table_version())
+            return decisions
 
     def _decide(self, r_hat, batch, t):
         t = self.t if t is None else t
@@ -125,7 +163,29 @@ class RouterService:
         `merge_s`) has them folded into the result's timings. An index
         that exposes `snapshot()` (the live handle) is read under one
         batch-wide snapshot: every group and the key lookup see the same
-        epoch, whatever writes or compactions run meanwhile."""
+        epoch, whatever writes or compactions run meanwhile. A failed
+        batch still reaches the SLO engine and the wide-event log before
+        its exception propagates."""
+        with trace.span("execute", q=batch.q):
+            try:
+                return self._execute_impl(batch, decisions)
+            except BaseException as e:
+                # failed batches still count: availability SLOs and the
+                # wide-event log see the error before it propagates
+                if self.slo is not None:
+                    self.slo.observe_batch(batch.q, errors=batch.q,
+                                           pred=int(batch.pred))
+                olog = self.obslog
+                if olog is not None:
+                    for ev in request_events(
+                            batch, decisions, per_query_us=0.0,
+                            trace_id=trace.trace_id(),
+                            error=f"{type(e).__name__}: {e}"):
+                        olog.emit(ev)
+                raise
+
+    def _execute_impl(self, batch: QueryBatch,
+                      decisions: list[RoutingDecision]) -> SearchResult:
         t1 = time.perf_counter()
         ids = np.full((batch.q, batch.k), -1, dtype=np.int32)
         raw = np.full((batch.q, batch.k), np.inf, dtype=np.float32)
@@ -133,7 +193,13 @@ class RouterService:
         if callable(pop):
             pop()                        # clear this thread's stale slate
         snap_fn = getattr(self.index, "snapshot", None)
-        snap = snap_fn() if callable(snap_fn) else None
+        if callable(snap_fn):
+            with trace.span("snapshot_pin"):
+                snap = snap_fn()
+                trace.annotate(generation=int(getattr(
+                    snap, "generation", 0)))
+        else:
+            snap = None
         pin = {} if snap is None else {"snapshot": snap}
         groups: dict = {}
         for qi, d in enumerate(decisions):
@@ -146,13 +212,16 @@ class RouterService:
                 # benchmarked.
                 setting = engine.resolve_setting(method, ps_id)
                 idxs = np.asarray(idxs)
-                g_ids, g_raw = self.index.run_method(
-                    method, setting, batch.take(idxs), **pin)
+                with trace.span("group", method=m_name, ps=ps_id,
+                                q=int(idxs.size)):
+                    g_ids, g_raw = self.index.run_method(
+                        method, setting, batch.take(idxs), **pin)
                 ids[idxs] = g_ids
                 raw[idxs] = g_raw
             # stable keys resolve inside the batch snapshot, so a
             # compaction can't remap rows between search and key lookup
-            keys = self.index.keys_of(ids, **pin)
+            with trace.span("resolve_keys"):
+                keys = self.index.keys_of(ids, **pin)
         finally:
             if snap is not None:
                 snap.release()
@@ -160,6 +229,46 @@ class RouterService:
         timings = {"search_s": t2 - t1, "total_s": t2 - t1}
         if callable(pop):
             timings.update(pop())
+        generation = getattr(self.index, "generation", 0)
+        trace.annotate(
+            decisions=sorted({f"{m}/{ps}" for (m, ps) in groups}),
+            generation=int(generation),
+            table_version=self._table_version())
+        sink = self.telemetry
+        if sink is not None:
+            sink.record_batch(batch, decisions, search_s=t2 - t1,
+                              generation=generation, keys=keys)
+            for stage in ("base_s", "delta_s", "merge_s", "shard_max_s"):
+                if stage in timings:
+                    sink.note(stage, timings[stage])
+            # per-shard stage seconds (sharded handles emit shard{j}_s)
+            # fold into the sink's (shard, stage) skew cells
+            for stage, val in timings.items():
+                if (stage.startswith("shard") and stage.endswith("_s")
+                        and stage != "shard_max_s"):
+                    try:
+                        sh = int(stage[5:-2])
+                    except ValueError:
+                        continue
+                    sink.note_shard(sh, "exec", val, batch.q)
+        per_q_us = (t2 - t1) * 1e6 / max(batch.q, 1)
+        slo_eng = self.slo
+        if slo_eng is not None:
+            slo_eng.observe_batch(batch.q, per_query_us=per_q_us,
+                                  pred=int(batch.pred))
+            tv = self._table_version()
+            if tv is not None:
+                slo_eng.note_provenance(table_version=tv)
+        olog = self.obslog
+        if olog is not None:
+            for ev in request_events(
+                    batch, decisions, per_query_us=per_q_us,
+                    trace_id=trace.trace_id(), timings=timings,
+                    generation=int(generation),
+                    table_version=self._table_version(),
+                    slo_state=(slo_eng.state() if slo_eng is not None
+                               else None)):
+                olog.emit(ev)
         return SearchResult(
             ids=ids,
             distances=exact_distances(raw, ids, batch.vectors),
@@ -172,14 +281,18 @@ class RouterService:
         squared-L2 distances, per-query `RoutingDecision`s and stage
         timings (`route_s`, `search_s`, `total_s`). Raises ValueError on
         batch/dataset shape mismatch; RuntimeError if the index is
-        closed."""
-        t0 = time.perf_counter()
-        decisions = self.route(batch, t=t)
-        t1 = time.perf_counter()
-        res = self.execute(batch, decisions)
-        res.timings["route_s"] = t1 - t0
-        res.timings["total_s"] = res.timings["search_s"] + (t1 - t0)
-        return res
+        closed. With a tracer, the call is one traced request."""
+        with trace.maybe_trace(self.tracer, "search", q=batch.q,
+                               k=batch.k, pred=int(batch.pred)):
+            t0 = time.perf_counter()
+            decisions = self.route(batch, t=t)
+            t1 = time.perf_counter()
+            res = self.execute(batch, decisions)
+            res.timings["route_s"] = t1 - t0
+            res.timings["total_s"] = res.timings["search_s"] + (t1 - t0)
+            if self.telemetry is not None:
+                self.telemetry.note("route_s", t1 - t0)
+            return res
 
     def search_chunked(self, batch: QueryBatch, *,
                        chunk: int = engine.DEFAULT_QCHUNK,
@@ -249,16 +362,20 @@ class ShardedRouterService(RouterService):
         index: a `ShardedFilteredIndex` or `ShardedLiveIndex` (TypeError
             otherwise — a plain `FilteredIndex`/`LiveFilteredIndex`
             belongs in `RouterService`).
-        router / t / methods: as in `RouterService`.
+        router / t / methods / telemetry / tracer / slo / obslog: as in
+            `RouterService`.
     """
 
-    def __init__(self, index, router, *, t: float = 0.9, methods=None):
+    def __init__(self, index, router, *, t: float = 0.9, methods=None,
+                 telemetry=None, tracer=None, slo=None, obslog=None):
         if not isinstance(index, (ShardedFilteredIndex, ShardedLiveIndex)):
             raise TypeError(
                 f"ShardedRouterService needs a ShardedFilteredIndex or "
                 f"ShardedLiveIndex; got {type(index).__name__} (use "
                 f"RouterService for single-index handles)")
-        super().__init__(index, router, t=t, methods=methods)
+        super().__init__(index, router, t=t, methods=methods,
+                         telemetry=telemetry, tracer=tracer, slo=slo,
+                         obslog=obslog)
 
 
 # ---------------------------------------------------------------------------
@@ -274,11 +391,18 @@ class QueryResult(NamedTuple):
       serves a fixed method instead of a routed service);
     * `keys` — [k] int64 stable external keys (−1 pad; None when the
       backend has no key layer).
+    * `cache` — how the query was served when the backend is a
+      `repro_torch.ann.cache.SemanticResultCache`: ``"exact"``
+      (bit-identical cached result), ``"semantic"`` (near-duplicate
+      cached result, re-scored), ``"transfer"`` (served from a
+      looser-filter cached entry whose rows all pass this query's
+      filter), or None (full routed search).
     """
     ids: np.ndarray
     distances: np.ndarray
     decision: RoutingDecision | None
     keys: np.ndarray | None = None
+    cache: str | None = None
 
 
 @dataclasses.dataclass
@@ -349,6 +473,12 @@ class AsyncBatchQueue:
     `QueryResult`; a failed batch propagates its exception to exactly
     the futures in that batch.
 
+    When the backend is a `repro_torch.ann.cache.SemanticResultCache` (it
+    exposes `probe_one`), every `submit()` probes the cache *before*
+    batching: a hit resolves the Future immediately — no queueing, no
+    routing, no search — and only the misses flow through the pipeline,
+    whose execute stage admits their results back into the cache.
+
     Args:
         service: the batched backend — a `RouterService` /
             `ShardedRouterService` (routed), or, with `method=`, any
@@ -376,6 +506,10 @@ class AsyncBatchQueue:
         self.service = service
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
+        # request-scoped tracing: roots are created at batch assembly in
+        # the worker thread and re-attached (explicit contextvar
+        # propagation) on the execution stage's thread
+        self._tracer = getattr(service, "tracer", None)
         if method is None:
             self._search = service.search
         else:
@@ -390,8 +524,14 @@ class AsyncBatchQueue:
         self._inflight: list[Future] = []
         self._flush_req = False
         self._closed = False
-        self._stats = {"queries": 0, "batches": 0, "max_batch_seen": 0,
-                       "max_queue_depth": 0, "flush_reasons": {}}
+        self._stats = {"queries": 0, "batches": 0, "cache_hits": 0,
+                       "max_batch_seen": 0, "max_queue_depth": 0,
+                       "flush_reasons": {}}
+        # queue depth is a pull gauge on the process ledger — the
+        # /statusz + backpressure-health surface reads it from there
+        self._ledger_key = f"queue:{id(self):x}"
+        ledger_mod.get_ledger().register_collector(
+            self._ledger_key, self._ledger_gauges)
         self._exec = _DaemonExecutor("async-batch-exec")
         self._exec_fut: Future | None = None
         self._worker = threading.Thread(
@@ -428,6 +568,20 @@ class AsyncBatchQueue:
                 raise ValueError(
                     f"query bitmap width {bitmap.shape[0]} does not match "
                     f"dataset width {ds.bitmaps.shape[1]}")
+        # cache probe before batching: a semantic-cache backend answers
+        # hits here, synchronously — the pipeline only ever sees misses
+        probe = getattr(self.service, "probe_one", None)
+        if callable(probe):
+            hit = probe(vector, bitmap, Predicate(pred), int(k))
+            if hit is not None:
+                with self._cv:
+                    if self._closed:
+                        raise RuntimeError("AsyncBatchQueue is closed")
+                    self._stats["queries"] += 1
+                    self._stats["cache_hits"] += 1
+                fut: Future = Future()
+                fut.set_result(hit)
+                return fut
         req = _PendingQuery(vector, bitmap, Predicate(pred), int(k),
                             time.monotonic(), Future())
         with self._cv:
@@ -460,6 +614,7 @@ class AsyncBatchQueue:
         hung backend search is abandoned rather than waited on.
         Idempotent."""
         t0 = time.monotonic()
+        ledger_mod.get_ledger().deregister_collector(self._ledger_key)
         with self._cv:
             self._closed = True
             self._cv.notify_all()
@@ -474,15 +629,27 @@ class AsyncBatchQueue:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    def _ledger_gauges(self) -> dict:
+        with self._cv:
+            return {"pending": len(self._pending),
+                    "inflight": len(self._inflight),
+                    "max_queue_depth": self._stats["max_queue_depth"]}
+
     def stats(self) -> dict:
-        """Counters: queries/batches served, largest batch, the
-        queue-depth high-water mark (`max_queue_depth` — how far
-        submissions ran ahead of the pipeline), and a flush-reason
-        histogram (max_batch / max_wait / flush / close)."""
+        """Counters: queries/batches served, cache hits answered at
+        submit time (`cache_hits`, nonzero only over a semantic-cache
+        backend), largest batch, the queue-depth high-water mark
+        (`max_queue_depth` — how far submissions ran ahead of the
+        pipeline), a flush-reason histogram (max_batch / max_wait /
+        flush / close), and the backend's telemetry sink's stats under
+        `telemetry` when it has one."""
         with self._cv:
             s = dict(self._stats)
             s["flush_reasons"] = dict(self._stats["flush_reasons"])
             s["pending"] = len(self._pending)
+        sink = getattr(self.service, "telemetry", None)
+        if sink is not None:
+            s["telemetry"] = sink.stats()
         return s
 
     # ---- worker: stage 1 (collect + route), stage 2 (execute) ------------
@@ -532,20 +699,45 @@ class AsyncBatchQueue:
     def _route_stage(self, take: list[_PendingQuery]) -> list:
         """Group requests into per-(pred, k) batches and, when the
         backend supports it, route them. Routing failures reject exactly
-        their group's futures here, before the execute stage."""
+        their group's futures here, before the execute stage.
+
+        With a tracer on the backend, each group gets a trace root
+        spanning submit → result: an `enqueue_wait` child reconstructed
+        from the oldest submit time, `batch_assembly`, the backend's
+        `route` span, and (on the executor thread, via `trace.attach`)
+        the whole execute subtree."""
         groups: dict = {}
         for req in take:
             groups.setdefault((req.pred, req.k), []).append(req)
         staged = []
+        tracer = self._tracer
         for (pred, k), reqs in groups.items():
+            root = None
             try:
-                batch = QueryBatch(np.stack([r.vector for r in reqs]),
-                                   np.stack([r.bitmap for r in reqs]),
-                                   pred, k)
-                decisions = (self.service.route(batch)
-                             if self._pipelined else None)
-                staged.append((reqs, batch, decisions))
+                if tracer is not None:
+                    t0 = min(r.t_submit for r in reqs)
+                    now = time.monotonic()
+                    root = tracer.start("request", q=len(reqs),
+                                        pred=int(pred), k=int(k))
+                    root.t0 = t0
+                    root.child(
+                        "enqueue_wait", t0=t0, t1=now,
+                        max_wait_ms=round((now - t0) * 1e3, 3),
+                        mean_wait_ms=round(sum(
+                            now - r.t_submit for r in reqs)
+                            / len(reqs) * 1e3, 3))
+                with trace.attach(root):
+                    with trace.span("batch_assembly", q=len(reqs)):
+                        batch = QueryBatch(
+                            np.stack([r.vector for r in reqs]),
+                            np.stack([r.bitmap for r in reqs]),
+                            pred, k)
+                    decisions = (self.service.route(batch)
+                                 if self._pipelined else None)
+                staged.append((reqs, batch, decisions, root))
             except BaseException as e:   # delivered to this group's callers
+                if root is not None:
+                    tracer.finish(root, error=repr(e))
                 for req in reqs:
                     if not req.future.done():
                         req.future.set_exception(e)
@@ -555,17 +747,32 @@ class AsyncBatchQueue:
                     futs: list[Future]) -> None:
         try:
             with self._cv:
-                self._stats["queries"] += sum(len(r) for r, _, _ in staged)
+                self._stats["queries"] += sum(len(r) for r, *_ in staged)
                 self._stats["batches"] += 1
                 self._stats["max_batch_seen"] = max(
                     self._stats["max_batch_seen"], len(futs))
                 rs = self._stats["flush_reasons"]
                 rs[reason] = rs.get(reason, 0) + 1
-            for reqs, batch, decisions in staged:
+            sink = getattr(self.service, "telemetry", None)
+            tracer = self._tracer
+            for reqs, batch, decisions, root in staged:
                 try:
-                    res = (self.service.execute(batch, decisions)
-                           if decisions is not None
-                           else self._search(batch))
+                    # re-enter the group's trace on this thread — the
+                    # contextvar does not cross the executor hop itself
+                    with trace.attach(root):
+                        res = (self.service.execute(batch, decisions)
+                               if decisions is not None
+                               else self._search(batch))
+                        trace.annotate(flush_reason=reason)
+                    if sink is not None:
+                        # queue wait = submit -> result, folded as a
+                        # counter pair (sum + count) per drain window
+                        now = time.monotonic()
+                        wait = sum(now - r.t_submit for r in reqs)
+                        sink.note("queue_wait_s", wait)
+                        sink.note("queue_waits", len(reqs))
+                    if root is not None:
+                        tracer.finish(root)
                     for j, req in enumerate(reqs):
                         dec = (res.decisions[j]
                                if res.decisions is not None else None)
@@ -576,6 +783,8 @@ class AsyncBatchQueue:
                                 keys=(res.keys[j] if res.keys is not None
                                       else None)))
                 except BaseException as e:   # propagate to exactly this group
+                    if root is not None and root.t1 is None:
+                        tracer.finish(root, error=repr(e))
                     for req in reqs:
                         if not req.future.done():
                             req.future.set_exception(e)

@@ -15,9 +15,11 @@ one fused MLP forward over full-dataset features — and only the chosen
 with each shard's row offset (row slices preserve row order), which is
 what lets the merge treat per-shard candidates as disjoint.
 
-The JAX package's handle also opens a `shard` and a `merge` trace span
-around each fan-out; the tracing layer is not ported yet, so this one
-keeps only the stage timings.
+Under an active trace (`repro_torch.ann.trace`) each fan-out opens one
+`shard` span a shard and the cross-shard fold a `merge` span, as the
+JAX package's handle does. On a card these spans time the host: the
+enqueue of each launch plus the device-to-host copies inside it, not
+the device's own time.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from repro_torch.ann import registry as registry_mod
+from repro_torch.ann import trace
 from repro_torch.ann.dataset import ANNDataset
 from repro_torch.ann.distributed import shard_bounds, shard_devices
 from repro_torch.ann.engine import (ParamSetting, pop_stage_timings,
@@ -198,14 +201,18 @@ class ShardedFilteredIndex:
         shard, on the host. Per-shard wall seconds accumulate on the
         calling thread's stage slate as `shard{j}_s`, and the straggler
         that bounds the fan-out, which a sum would hide, as
-        `shard_max_s`."""
+        `shard_max_s`. Under an active trace each shard's run is a
+        `shard` child span, attached across the pool's threads."""
         self._check_open()
+        parent = trace.current()
         times = [0.0] * len(self.shards)
 
         def shard_run(jfx):
             j, fx = jfx
             s0 = time.perf_counter()
-            out = fx.run_method(method, setting, batch)
+            with trace.attach(parent):
+                with trace.span("shard", shard=j):
+                    out = fx.run_method(method, setting, batch)
             times[j] = time.perf_counter() - s0
             return out
 
@@ -234,13 +241,16 @@ class ShardedFilteredIndex:
 
         Stage seconds accumulate on the calling thread's slate
         (`shard{j}_s`, `shard_max_s`, and `merge_s` for the stack and the
-        merge), drained by `pop_stage_timings()`.
+        merge), drained by `pop_stage_timings()`. Under an active trace
+        the fan-out is one `shard` span a shard and the fold a `merge`
+        span.
         Raises: RuntimeError if closed; ValueError on shape mismatch.
         """
         parts = self.shard_candidates(method, setting, batch)
         t_merge = time.perf_counter()
-        ids, raw = stack_candidates(parts)
-        out = merge_candidates(ids, raw, batch.k, self.torch_device)
+        with trace.span("merge", shards=len(parts)):
+            ids, raw = stack_candidates(parts)
+            out = merge_candidates(ids, raw, batch.k, self.torch_device)
         stage_add("merge_s", time.perf_counter() - t_merge)
         return out
 
@@ -270,6 +280,13 @@ class ShardedFilteredIndex:
             decisions=None, timings={"search_s": dt, "total_s": dt},
             keys=self.keys_of(ids))
 
+    @property
+    def generation(self) -> int:
+        """Sealed sharded indexes never remap rows — constant 0,
+        mirroring `FilteredIndex` so telemetry events carry a uniform
+        generation field across handle types."""
+        return 0
+
     # ---- stable external keys -------------------------------------------
     def keys_of(self, ids) -> np.ndarray:
         """Stable external keys for global result ids: identity on a
@@ -278,8 +295,9 @@ class ShardedFilteredIndex:
         return np.where(ids >= 0, ids, np.int64(-1))
 
     def label_clock(self, labels=None) -> int:
-        """Sealed data never changes — constant 0, the surface a live
-        handle's per-label write clock will share."""
+        """Sealed data never changes — constant 0, the surface the live
+        handles' per-label write clock shares (the result cache reads
+        it)."""
         return 0
 
     # ---- maintenance -----------------------------------------------------

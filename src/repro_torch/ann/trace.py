@@ -24,10 +24,15 @@ Exports render a finished tree as Chrome-trace/Perfetto JSON
 are pushed onto separate ``tid`` lanes so every lane is properly
 nested, which is what trace viewers require of ``"ph": "X"`` events.
 
-This is the JAX package's module, line for line. In this package only
-the store opens spans so far (``wal.append``, ``wal.fsync``,
-``store.checkpoint``, ``store.commit_manifest``); the service's, the
-queue's, the live handles' and the ``shard`` spans are not wired yet.
+This is the JAX package's module, line for line, and the port opens
+the same spans: the service's (``search``, ``route``, ``execute``,
+``snapshot_pin``, ``group``, ``resolve_keys``), the queue's
+(``request``, ``enqueue_wait``, ``batch_assembly``), the cache's, the
+live handles' (``live.base``, ``live.delta``, ``live.merge``), the
+sharded handles' (``shard``, ``merge``) and the store's (``wal.append``,
+``wal.fsync``, ``store.checkpoint``, ``store.commit_manifest``). Spans
+read the host's clock; around work on a card they time the enqueue plus
+any device-to-host copy inside them.
 """
 
 from __future__ import annotations

@@ -92,6 +92,17 @@ class MLRouter:
         x = F.feature_matrix(ds, qbms, pred, self.feature_names, fx=fx)
         return self.predict_recalls_from_features(x, device=device)
 
+    def retrained(self, models: dict, scaler: "mlp.Scaler",
+                  table: BenchmarkTable | None = None) -> "MLRouter":
+        """Fresh router with new weights but this router's feature set
+        and method order (the online adapter's retrain constructor — a
+        new instance, so the serving swap is one reference assignment
+        and the stacked-model cache starts cold)."""
+        return MLRouter(feature_names=list(self.feature_names),
+                        methods=list(self.methods), models=models,
+                        scaler=scaler,
+                        table=self.table if table is None else table)
+
     def stacked_model(self, device) -> mlp.StackedMLP:
         """All M per-method models as one `StackedMLP` on `device`
         (cached per device)."""

@@ -40,6 +40,14 @@ def test_port_imports_with_jax_and_reference_blocked():
         "from repro_torch.ann.live import ShardedLiveIndex, "
         "ShardedLiveSnapshot",
         "from repro_torch.ann.service import ShardedRouterService",
+        "from repro_torch.ann.cache import SemanticResultCache",
+        "from repro_torch.ann.telemetry import (TelemetrySink, "
+        "RecallAuditor, OnlineBenchmarkTable, OnlineRouterAdapter, "
+        "DegradedMethod, constant_router)",
+        "from repro_torch.ann.slo import SLOEngine",
+        "from repro_torch.ann.obslog import WideEventLog, PostmortemDumper",
+        "from repro_torch.ann.metrics import metrics_text, MetricsServer",
+        "from repro_torch.common import artifacts_dir",
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))",
         "               for m in sys.modules if sys.modules[m] is not None)",
         "print('ok')",
