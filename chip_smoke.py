@@ -200,6 +200,30 @@ not 0):
              /healthz answer 200). Everything the phase opens (the logs'
              writer threads, the server, the cache, the queue, the
              post-mortem handlers) is closed before the last line.
+13. train  — the router's offline stage on the card, the launch counts
+             set to 0 just before it and read just after (the kernels'
+             line's `launches_by_path.train`): (a) `training.collect` on
+             the six training specs (`get_dataset`, each `FilteredIndex(
+             ds)` on the card; 60 queries a predicate, seed 0, the five
+             candidates: `router_all`'s recipe), one line a cell (its
+             searches' seconds, each method's best setting and mean
+             recall), every table-B recall against `router_all/
+             table.json` key by key (counts equal and differing, the
+             largest |delta|, SWEEP_TOL); (b) `training.train_models`
+             (minimal features, (64, 32), 200 epochs) on the card and on
+             the CPU from the same initial parameters and batches:
+             seconds a method on each, the final MSE (MSE_RTOL), the
+             largest |delta prediction| (FIT_TOL) beside a CPU fit of
+             one-ulp-moved inputs; (c) a router from the card's
+             fit over the sweep's table merged with phase 5's rows, saved
+             and loaded with the same decisions, serving phase 5's three
+             batches on the 1M handle: every answer passes its predicate
+             and is bit-identical to `fx.run_method` of its decision,
+             decisions and recall@10 beside `router_all`'s; (d) the
+             adapter's default retrain from audit labels over a degraded
+             ivf_gamma on the 1M handle. Then one profiled pass of the
+             sweep over `ytb_audio` (its indexes built) and of a 20-epoch
+             fit.
 
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON line (`merge_topk`'s row with `by_input`: each input kind's ms,
@@ -236,8 +260,10 @@ from repro_torch.ann import bench  # noqa: E402
 from repro_torch.ann import live as live_mod  # noqa: E402
 from repro_torch.ann.dataset import (ANNDataset,  # noqa: E402
                                      ground_truth_topk, recall_at_k)
-from repro_torch.ann.engine import DEFAULT_QCHUNK, to_device  # noqa: E402
-from repro_torch.ann.index import FilteredIndex, QueryBatch  # noqa: E402
+from repro_torch.ann.engine import (DEFAULT_QCHUNK,  # noqa: E402
+                                    resolve_setting, to_device)
+from repro_torch.ann.index import (FilteredIndex, QueryBatch,  # noqa: E402
+                                   exact_distances)
 from repro_torch.ann.live import (LiveFilteredIndex,  # noqa: E402
                                   ShardedLiveIndex)
 from repro_torch.ann.predicates import (PREDICATES, Predicate,  # noqa: E402
@@ -263,9 +289,11 @@ from repro_torch.ann.sharded import (ShardedFilteredIndex,  # noqa: E402
                                      stack_candidates)
 from repro_torch.ann.store import IndexStore, WriteAheadLog  # noqa: E402
 from repro_torch.core import features as F  # noqa: E402
+from repro_torch.core import mlp, training  # noqa: E402
 from repro_torch.core.router import MLRouter  # noqa: E402
 from repro_torch.core.table import BenchmarkTable  # noqa: E402
-from repro_torch.data.ann_synth import (VALIDATION_SPECS,  # noqa: E402
+from repro_torch.data.ann_synth import (TRAIN_SPECS,  # noqa: E402
+                                        VALIDATION_SPECS, get_dataset,
                                         make_queries, synthesize)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitmap_filter as bf  # noqa: E402
@@ -3577,6 +3605,272 @@ def merge_by_input(yard: dict, store_folds: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the router's offline stage
+# ---------------------------------------------------------------------------
+
+# (a) is `router_all`'s own recipe (CHANGES.md, PR 16): the six training
+# specs at the repo's sizes, TRAIN_QUERIES queries a predicate, seed 0,
+# the five candidates in the router's method order. (b) is its fit.
+TRAIN_QUERIES = 60
+TRAIN_HIDDEN = (64, 32)
+TRAIN_EPOCHS = 200
+# (a) The port's sweep on the CPU gives the JAX package's table-B recalls
+# exactly on the tiny spec (tests/test_torch_training.py), and at this
+# recipe 281 of `router_all`'s 288 entries; the 7 others are fvamana
+# entries at the beam search's fp32 near-ties (ROADMAP queue 3 item 3),
+# |delta mean recall| <= 0.005, 3 of a cell's 600 result slots
+# (`run_train_sweep(torch.device("cpu"))`). On the card an id can part
+# from the CPU's only at such ties too, in a search or in the card's
+# graph build. SWEEP_TOL, ten times that, bounds every entry.
+SWEEP_TOL = 0.05
+# (b) A fit on the card and one on the CPU start from the same
+# parameters (`init_mlp` draws on the host) and take the same batches,
+# and part only by the two devices' fp32 rounding. On these labels (many
+# queries share a feature row, with different recalls) the fit is
+# chaotic in that rounding: on the CPU, inputs moved by one ulp move the
+# fitted predictions about as far as the card's fit parts from the CPU's
+# (PERF.md, PR 21: 0.003 against 0.0049), while the final MSE stays
+# within 5e-4 relative. So the card's fit is held to the CPU's by its
+# final MSE (MSE_RTOL) and its predictions within FIT_TOL, each about 20
+# times those; each run prints the one-ulp spread beside them.
+MSE_RTOL = 0.01
+FIT_TOL = 0.1
+
+
+def run_train_sweep(dev) -> tuple:
+    """Phase 13 (a): `training.collect` over the six training specs from
+    `get_dataset`, each opened as `FilteredIndex(ds)` on `dev`, one call a
+    dataset; one line a cell (its timed searches' seconds, each method's
+    best setting and mean recall); every table-B recall entry against
+    `router_all/table.json`, key by key (a missing or extra key fails, an
+    entry past SWEEP_TOL fails). Returns (the merged collection, the
+    handles, a summary)."""
+    methods = {m: get_method(m) for m in training.METHOD_ORDER}
+    cells, table, handles, dataset_s = {}, BenchmarkTable.new(), {}, {}
+    t_all = time.perf_counter()
+    for name in TRAIN_SPECS:
+        t0 = time.perf_counter()
+        ds = get_dataset(name)
+        fx = handles[name] = FilteredIndex(ds, device=dev)
+        coll = training.collect({name: fx}, methods, n_queries=TRAIN_QUERIES,
+                                seed=0, verbose=False)
+        dataset_s[name] = time.perf_counter() - t0
+        cells.update(coll.cells)
+        table.entries.update(coll.table.entries)
+        for (d, pt), cell in sorted(coll.cells.items()):
+            emit("train.sweep", dataset=d, pred=PRED_NAMES[pt],
+                 search_s=sum(TRAIN_QUERIES / qps for *_, qps in cell.sweep),
+                 best={m: [cell.best_ps[m], float(cell.recall[m].mean())]
+                       for m in training.METHOD_ORDER})
+        emit("train.sweep.dataset", dataset=name, rows=ds.n, dim=ds.dim,
+             seconds=dataset_s[name])
+    want = BenchmarkTable.load(os.path.join(ASSETS, "router_all",
+                                            "table.json")).entries
+    if set(want) != set(table.entries):
+        raise AssertionError(
+            f"table B's keys differ from router_all's: missing "
+            f"{sorted(set(want) - set(table.entries))[:5]}, extra "
+            f"{sorted(set(table.entries) - set(want))[:5]}")
+    delta = {key: table.entries[key]["recall"] - cell["recall"]
+             for key, cell in want.items()}
+    differ = {key: d for key, d in delta.items() if d != 0.0}
+    worst = max(abs(d) for d in delta.values())
+    summary = {"seconds": time.perf_counter() - t_all, "dataset_s": dataset_s,
+               "entries": len(want), "equal": len(want) - len(differ),
+               "differ": len(differ),
+               "differ_by_method": {m: sum(k[2] == m for k in differ)
+                                    for m in training.METHOD_ORDER},
+               "max_abs_delta": worst, "tolerance": SWEEP_TOL,
+               "differing": [[*k, d] for k, d in sorted(differ.items())]}
+    emit("train.sweep.summary", **summary)
+    if worst > SWEEP_TOL:
+        raise AssertionError(f"table B parts from router_all's by {worst} "
+                             f"> {SWEEP_TOL}: {summary['differing'][:10]}")
+    return training.Collection(cells=cells, table=table), handles, summary
+
+
+@contextlib.contextmanager
+def timed_fits():
+    """While open, the seconds of each `mlp.train_mlp` call, to the end of
+    its device work, are appended to the yielded list."""
+    real, out = mlp.train_mlp, []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        params = real(*args, **kw)
+        if params[0]["w"].is_cuda:
+            torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+        return params
+    mlp.train_mlp = timed
+    try:
+        yield out
+    finally:
+        mlp.train_mlp = real
+
+
+def run_train_fits(coll, dev) -> tuple:
+    """Phase 13 (b): `training.train_models` on the collection with the
+    minimal features, hidden TRAIN_HIDDEN and TRAIN_EPOCHS epochs, on
+    `dev`, then the same call on the host's CPU (the same initial
+    parameters and batch order), and a CPU fit of the inputs moved up by
+    one ulp (the fit's own rounding sensitivity): each method's seconds
+    on each device, its final MSE on the training X, and the largest
+    |delta prediction| of the card's fit and of the moved one against
+    the CPU's. Fails past MSE_RTOL or FIT_TOL. Returns (the card's
+    models, its scaler, a summary)."""
+    x_raw, y, _ = training.assemble_xy(coll, F.MINIMAL_FEATURES)
+    kw = dict(hidden=TRAIN_HIDDEN, epochs=TRAIN_EPOCHS)
+    fits, secs = {}, {}
+    for where in (dev, torch.device("cpu")):
+        with timed_fits() as s:
+            fits[where.type] = training.train_models(
+                coll, F.MINIMAL_FEATURES, device=where, **kw)
+        secs[where.type] = dict(zip(training.METHOD_ORDER, s))
+    moved, _ = training.train_models_from_xy(
+        np.nextafter(x_raw, np.float32(np.inf)), y, training.METHOD_ORDER,
+        device="cpu", **kw)
+    (models, scaler), (cpu_models, cpu_scaler) = fits[dev.type], fits["cpu"]
+    if not (np.array_equal(scaler.mean, cpu_scaler.mean)
+            and np.array_equal(scaler.std, cpu_scaler.std)):
+        raise AssertionError("the two fits' scalers differ")
+    xs = scaler.transform(x_raw)
+
+    def fitted(layers, where):
+        return mlp.predict(mlp.params_from_numpy(layers, where), xs)[:, 0]
+    per = {}
+    for j, m in enumerate(training.METHOD_ORDER):
+        got, ref = fitted(models[m], dev), fitted(cpu_models[m], "cpu")
+        mse = float(np.mean((got - y[:, j]) ** 2))
+        cpu_mse = float(np.mean((ref - y[:, j]) ** 2))
+        per[m] = {"card_s": secs[dev.type][m], "cpu_s": secs["cpu"][m],
+                  "mse": mse, "cpu_mse": cpu_mse,
+                  "mse_rel_delta": abs(mse - cpu_mse) / cpu_mse,
+                  "max_abs_delta": float(np.abs(got - ref).max()),
+                  "cpu_one_ulp_max_abs_delta": float(np.abs(
+                      fitted(moved[m], "cpu") - ref).max())}
+    summary = {"rows": int(x_raw.shape[0]), "features": F.MINIMAL_FEATURES,
+               "hidden": list(TRAIN_HIDDEN), "epochs": TRAIN_EPOCHS,
+               "steps": TRAIN_EPOCHS * (x_raw.shape[0]
+                                        // min(256, x_raw.shape[0])),
+               "methods": per,
+               "max_abs_delta": max(v["max_abs_delta"] for v in per.values()),
+               "max_mse_rel_delta": max(v["mse_rel_delta"]
+                                        for v in per.values()),
+               "fit_tol": FIT_TOL, "mse_rtol": MSE_RTOL}
+    emit("train.fit", **summary)
+    if summary["max_abs_delta"] > FIT_TOL \
+            or summary["max_mse_rel_delta"] > MSE_RTOL:
+        raise AssertionError(f"the card's fit parts from the CPU's: {per}")
+    return models, scaler, summary
+
+
+def run_train_router(fx, models, scaler, train_table, rows, routed: dict,
+                     truth: dict, router_all_recall: dict,
+                     build_dir: str) -> dict:
+    """Phase 13 (c): a router from the card's fit, its table the sweep's
+    entries merged with phase 5's rows for the handle `fx` (as
+    `build_all` merges two collections), saved with `MLRouter.save` and
+    opened with `MLRouter.load` (decisions identical before and after);
+    then `RouterService(fx, router, t=0.9)` on phase 5's routed batches:
+    every answer passes its predicate (`check_result`) and is bit-identical
+    to `fx.run_method` of its query's decision; the decisions and
+    recall@10 against `truth` beside `router_all`'s."""
+    table = BenchmarkTable.new()
+    table.entries.update(train_table.entries)
+    for r in rows:
+        table.add(fx.ds.name, r.pred, r.method, r.ps_id, r.mean_recall,
+                  r.qps)
+    router = MLRouter(feature_names=F.MINIMAL_FEATURES,
+                      methods=training.METHOD_ORDER, models=models,
+                      scaler=scaler, table=table)
+    path = tempfile.mkdtemp(prefix="router-", dir=build_dir)
+    try:
+        router.save(path)
+        loaded = MLRouter.load(path)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    svc = RouterService(fx, loaded, t=0.9)
+    out = {}
+    for pred, batch in routed.items():
+        name = PRED_NAMES[pred]
+        before = router.route(fx.ds, batch.bitmaps, pred, 0.9, fx=fx)
+        if loaded.route(fx.ds, batch.bitmaps, pred, 0.9, fx=fx) != before:
+            raise AssertionError(f"the trained router decides otherwise "
+                                 f"after save and load, {name}")
+        res = svc.search(batch)
+        if list(res.decisions) != before:
+            raise AssertionError(f"the service's decisions are not the "
+                                 f"router's, {name}")
+        check_result(fx.ds, batch, res, f"trained router {name}")
+        groups = {}
+        for qi, d in enumerate(res.decisions):
+            groups.setdefault(tuple(d), []).append(qi)
+        for (m, ps), idxs in groups.items():
+            idxs = np.asarray(idxs)
+            sub = batch.take(idxs)
+            method = get_method(m)
+            ids, raw = fx.run_method(method, resolve_setting(method, ps), sub)
+            dist = exact_distances(raw, ids, sub.vectors)
+            if not (np.array_equal(ids, res.ids[idxs]) and np.array_equal(
+                    dist.view(np.int32), res.distances[idxs].view(np.int32))):
+                raise AssertionError(f"routed answers differ from "
+                                     f"run_method's, {name} {m}/{ps}")
+        hist = {}
+        for m, ps in res.decisions:
+            hist[f"{m}/{ps}"] = hist.get(f"{m}/{ps}", 0) + 1
+        out[name] = {"decisions": hist, "recall_at_10": float(
+            recall_at_k(res.ids, truth[pred]).mean()),
+            "router_all_recall_at_10": router_all_recall[name],
+            "route_s": res.timings["route_s"],
+            "search_s": res.timings["search_s"]}
+        emit("train.routed", pred=name, q=batch.q, **out[name],
+             same_after_save_load=True, answers_as_run_method=True)
+    return out
+
+
+def run_train_retrain(fx, batch) -> dict:
+    """Phase 13 (d): the JAX package's `test_default_retrain_learns_from_
+    audit_labels` on the handle `fx`: `constant_router` over the IVF pair
+    with ivf_gamma served through `DegradedMethod(keep=1)`, and an
+    `OnlineRouterAdapter` with no `retrain_fn`, whose default retrain
+    fits `train_models_from_xy` on audit labels on the handle's device.
+    It must retrain within 8 steps; a promotion must have beaten the
+    incumbent, a rollback keeps it."""
+    router = constant_router(F.MINIMAL_FEATURES, ["ivf_gamma", "postfilter"],
+                             two_method_table(fx.ds.name))
+    serving = dict(candidate_methods())
+    serving["ivf_gamma"] = DegradedMethod(serving["ivf_gamma"], keep=1)
+    sink = TelemetrySink(capacity=512, reservoir=96, seed=6)
+    svc = RouterService(fx, router, t=0.9, methods=serving, telemetry=sink)
+    adapter = OnlineRouterAdapter(svc, sink, alpha=0.5, drift_threshold=0.05,
+                                  min_samples=8, retrain_epochs=30,
+                                  retrain_hidden=(16,), seed=7)
+    t0 = time.perf_counter()
+    report = None
+    for step in range(8):
+        svc.search(batch)
+        rep = adapter.step()
+        if rep["retrained"]:
+            report = rep
+            break
+    if report is None or "shadow" not in report:
+        raise AssertionError(f"no retrain from audit labels: "
+                             f"{adapter.history}")
+    shadow = report["shadow"]
+    if report["promoted"]:
+        if svc.router is router or not (shadow["candidate_recall"]
+                                        > shadow["incumbent_recall"]):
+            raise AssertionError(f"a promotion that did not win: {report}")
+    elif svc.router is not router:
+        raise AssertionError("a rollback replaced the incumbent")
+    return {"steps": step + 1, "seconds": time.perf_counter() - t0,
+            "retrained": report["retrained"],
+            "promoted": report["promoted"], "shadow": shadow,
+            "routes_after": sorted({d.method for d in svc.route(batch)})}
+
+
 def profile_phase(name: str, fn) -> None:
     """`fn()` once under torch.profiler: wall time, the device's busy time
     (the sum of its kernel, copy and fill intervals, which one stream runs
@@ -4014,13 +4308,51 @@ def main() -> int:
         shutil.rmtree(serve_dir, ignore_errors=True)
     emit("serving", seconds=time.perf_counter() - t0,
          launches=launches_serving)
+
+    # phase 13, the router's offline stage: (a) the sweep into table B,
+    # (b) the fits on the card and the CPU, (c) the trained router serving
+    # the 1M handle, (d) the default retrain; launch counts set to 0 just
+    # before (after the routed batches' exact answers) and read just after
+    truth = {p: fx.search(b, "prefilter").ids for p, b in routed.items()}
+    t0 = time.perf_counter()
+    reset_launches()
+    coll, train_handles, sweep = run_train_sweep(dev)
+    models, scaler, fit = run_train_fits(coll, dev)
+    train_dir = tempfile.mkdtemp(prefix="train-",
+                                 dir=os.path.join(ROOT, "build"))
+    try:
+        trained = run_train_router(fx, models, scaler, coll.table, rows,
+                                   routed, truth, summary["recall_at_10"],
+                                   train_dir)
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    retrain = run_train_retrain(
+        fx, routed[int(Predicate.AND)].take(np.arange(32)))
+    emit("train.retrain", **retrain)
+    launches_train = read_launches()
+    emit("train", seconds=time.perf_counter() - t0, launches=launches_train,
+         sweep_s=sweep["seconds"], fit_card_s=sum(
+             v["card_s"] for v in fit["methods"].values()), routed=trained)
+    for name in ("masked_topk", "selectivity"):
+        if launches_train[name] == 0:
+            raise AssertionError(f"the offline stage never launched {name}")
+    profile_phase("train_sweep", lambda: training.collect(
+        {"ytb_audio": train_handles["ytb_audio"]},
+        {m: get_method(m) for m in training.METHOD_ORDER},
+        n_queries=TRAIN_QUERIES, verbose=False))
+    profile_phase("train_fit", lambda: training.train_models(
+        coll, F.MINIMAL_FEATURES, hidden=TRAIN_HIDDEN,
+        epochs=TRAIN_EPOCHS // 10, device=dev))
+    for h in train_handles.values():
+        h.close()
     serving_total = {name: sum(c[name] for c in launches_serving.values())
                      for name in KERNEL_WRAPPERS}
     launches_by_path = {"main": launches, "sharded": launches_sharded,
                         "queue": launches_queue, "multiblock": launches_mb,
                         "live": launches_live, "live_staged": launches_staged,
                         "anyk": launches_anyk, "sharded_live": launches_sl,
-                        "store": launches_store, "serving": serving_total}
+                        "store": launches_store, "serving": serving_total,
+                        "train": launches_train}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []

@@ -276,6 +276,27 @@ class ANNDataset:
     def n_groups(self) -> int:
         return int(self.group_bitmaps.shape[0])
 
+    def cache_key(self) -> tuple:
+        """Stable content-identity key for cross-module caches (the
+        JAX package's key: the same arrays give the same key in both).
+
+        Metadata alone (name/shape/universe) aliases distinct datasets, and
+        id() keys can be recycled after GC — so fold in a fingerprint of
+        strided vector/bitmap/group samples. Computed once and memoised on
+        the instance.
+        """
+        key = getattr(self, "_cache_key", None)
+        if key is None:
+            h = hashlib.sha1()
+            for a in (self.vectors[:: max(1, self.n // 64)],
+                      self.bitmaps[:: max(1, self.n // 64)],
+                      self.group_size):
+                h.update(np.ascontiguousarray(a).tobytes())
+            key = (self.name, self.n, self.dim, self.universe,
+                   self.n_groups, h.hexdigest())
+            object.__setattr__(self, "_cache_key", key)
+        return key
+
     def row_slice(self, start: int, stop: int,
                   name: str | None = None) -> "ANNDataset":
         """Contiguous row partition `[start, stop)` as its own dataset.

@@ -364,3 +364,38 @@ def _build_device_data(ds: ANNDataset, device: torch.device) -> DeviceData:
         group_centroids=to_device(cent, device),
         group_cnorms=to_device((cent ** 2).sum(1).astype(np.float32), device),
     )
+
+
+# ---------------------------------------------------------------------------
+# default pool — for callers that pass bare ANNDataset objects (the
+# offline stage's `collect`, `bench.run_method`). Each entry is an
+# ordinary owned FilteredIndex; `clear_pool` closes them all.
+# ---------------------------------------------------------------------------
+
+_POOL: dict[tuple, FilteredIndex] = {}
+
+
+def default_index(ds: ANNDataset, device="cuda") -> FilteredIndex:
+    """Process-wide shared handle for `ds` on `device` (keyed by content
+    identity and device; "cuda" by default, which raises without a
+    card)."""
+    device = resolve_device(device)
+    key = (ds.cache_key(), device)
+    fx = _POOL.get(key)
+    if fx is None or fx.closed:
+        fx = FilteredIndex(ds, device=device)
+        _POOL[key] = fx
+    return fx
+
+
+def as_index(obj, device="cuda"):
+    """Coerce an ANNDataset to its pooled handle on `device`; pass any
+    handle through unchanged (whatever its device)."""
+    return default_index(obj, device) if isinstance(obj, ANNDataset) else obj
+
+
+def clear_pool() -> None:
+    """Close and drop every pooled handle."""
+    for fx in _POOL.values():
+        fx.close()
+    _POOL.clear()

@@ -1724,9 +1724,8 @@ class ShardedLiveIndex(_StableKeyMixin, _LabelClockMixin, _StageTimings):
 
     Writes and compactions log to an attached write-ahead log
     (`attach_wal`) at the sharded level: global ids and keys, the epoch
-    as the generation. The JAX package's handle also opens a `shard`
-    trace span around each shard run; that hook is not ported yet, so
-    this one keeps only the stage timings.
+    as the generation. Each shard run opens a `shard` trace span, as the
+    JAX package's handle does, beside the stage timings.
     """
 
     def __init__(self, ds: ANNDataset | None = None, n_shards: int = 1, *,

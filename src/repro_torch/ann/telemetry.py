@@ -40,10 +40,9 @@ the same table arithmetic. Device work stays where the reference has
 it: the auditor's oracle is the registered `prefilter` method, so on a
 card it runs the `masked_topk` kernel (`masked_topk_large` and
 `fused_live` on a live handle, `merge_topk` across shards). The
-adapter's default retrain needs the training slice
-(`train_models_from_xy`), which this package does not have yet; until
-it lands `_default_retrain` raises NotImplementedError, so pass
-`retrain_fn=` to retrain.
+adapter's default retrain fits `training.train_models_from_xy` on the
+audit labels on the handle's device; its feature pass launches the
+`selectivity` kernel there.
 """
 
 from __future__ import annotations
@@ -770,18 +769,57 @@ class OnlineRouterAdapter:
         return out
 
     def _default_retrain(self, _self=None):
-        """Retrain the per-method MLPs on audit-derived labels (the JAX
-        package replays each training query through every candidate at
-        its max-recall setting and fits `train_models_from_xy`). This
-        package has no training code yet — ROADMAP queue 1, item 2 (the
-        training slice) brings it — so this raises rather than return
-        None, which `_retrain_and_maybe_promote` would read as "no
-        candidate" and quietly skip every retrain. Pass `retrain_fn=`
-        to retrain meanwhile."""
-        raise NotImplementedError(
-            "OnlineRouterAdapter's default retrain needs "
-            "train_models_from_xy, which comes with the training slice "
-            "(ROADMAP queue 1, item 2); pass retrain_fn= until then")
+        """Retrain the per-method MLPs on audit-derived labels: each
+        training query is replayed through every candidate method at its
+        max-recall setting on a pinned snapshot, exact recall vs the
+        audit oracle becomes y[:, j]. The fit runs on the handle's
+        device. Runs entirely off the serving path."""
+        from repro_torch.core import features as F
+        from repro_torch.core.training import train_models_from_xy
+
+        router = self.service.router
+        index = self.service.index
+        ds = getattr(index, "ds", None)
+        if ds is None or not self._train:
+            return None
+        samples = list(self._train)
+        methods = list(router.methods)
+        # group queries by (pred, k) so replays batch
+        groups: dict[tuple, list] = {}
+        for rec in samples:
+            groups.setdefault((rec[0].pred, rec[0].k), []).append(rec)
+        xs, ys = [], []
+        snap_fn = getattr(index, "snapshot", None)
+        snap = snap_fn() if callable(snap_fn) else None
+        try:
+            for (pred, k), group in groups.items():
+                qb = QueryBatch(np.stack([r[0].vector for r in group]),
+                                np.stack([r[0].bitmap for r in group]),
+                                Predicate(pred), k)
+                x = F.feature_matrix(ds, qb.bitmaps, qb.pred,
+                                     router.feature_names, fx=index)
+                y = np.zeros((len(group), len(methods)), dtype=np.float64)
+                for j, m in enumerate(methods):
+                    hit = self.table.max_recall_setting(
+                        self.ds_name, pred, m)
+                    ps = hit[0] if hit else None
+                    kw = {"snapshot": snap} if snap is not None else {}
+                    res = index.search(qb, m, ps, **kw)
+                    got = res.keys if res.keys is not None else res.ids
+                    for qi, rec in enumerate(group):
+                        y[qi, j] = _audit_recall(got[qi], rec[2], k)
+                xs.append(x)
+                ys.append(y)
+        finally:
+            if snap is not None:
+                snap.release()
+        x_raw = np.concatenate(xs, axis=0)
+        y_all = np.concatenate(ys, axis=0)
+        models, scaler = train_models_from_xy(
+            x_raw, y_all, methods, seed=self._seed + 17 * self.promotions,
+            hidden=self.retrain_hidden, epochs=self.retrain_epochs,
+            device=index.torch_device)
+        return router.retrained(models, scaler, table=self.table)
 
     # ------------------------------------------------------ shadow eval
 

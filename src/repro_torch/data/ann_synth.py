@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from functools import lru_cache
 
 import numpy as np
 
@@ -102,6 +103,12 @@ def synthesize(spec: DatasetSpec) -> ANNDataset:
         label_sets.append(sorted(ls))
 
     return ANNDataset.build(spec.name, vecs, label_sets, u)
+
+
+@lru_cache(maxsize=None)
+def get_dataset(name: str) -> ANNDataset:
+    """`synthesize(ALL_SPECS[name])`, made once per process."""
+    return synthesize(ALL_SPECS[name])
 
 
 def make_queries(ds: ANNDataset, pred: Predicate, n_queries: int, *,

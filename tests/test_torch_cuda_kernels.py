@@ -750,3 +750,76 @@ def test_sharded_live_on_card_equals_cpu(cuda):
     finally:
         for live in handles:
             live.close()
+
+
+# ---- the offline stage on the card against the CPU --------------------------
+
+# A fit on the card and one on the CPU start from the same parameters
+# (`init_mlp` draws on the host) and take the same batches; they differ
+# only by the rounding of the two devices' fp32 matmuls and reductions,
+# which 200 epochs of Adam carry into the predictions. On these smooth,
+# noise-free targets that stays far below FIT_TOL (the same fit on the
+# CPU against the JAX package's: 2e-6); chip_smoke.py phase 13 (b) holds
+# the router's own fit, whose labels make it chaotic in the rounding, by
+# its MSE instead.
+FIT_TOL = 1e-3
+# One sweep's table-B recall on the card against the CPU: ids part only
+# where two rows' distances lie within fp32 rounding (and where such a
+# tie changed a graph edge of the fvamana build), moving a mean recall
+# over the cell's queries by a few of its result slots at most
+# (chip_smoke.py phase 13 (a)).
+SWEEP_TOL = 0.05
+
+
+@pytest.mark.parametrize("hidden,classification", [((64, 32), False),
+                                                   ((), True)])
+def test_train_mlp_on_card_equals_cpu(cuda, hidden, classification):
+    from repro_torch.core import mlp
+
+    rng = np.random.default_rng(31)
+    x = rng.normal(size=(1080, 5)).astype(np.float32)
+    if classification:
+        y, n_out = (x[:, 0] > 0).astype(np.int64) + (x[:, 1] > 1), 3
+    else:
+        y = (1 / (1 + np.exp(-x[:, 0] * x[:, 1]))).astype(np.float32)
+        n_out = 1
+    kw = dict(hidden=hidden, n_out=n_out, classification=classification,
+              epochs=200, seed=5)
+    card = mlp.train_mlp(x, y, device=cuda, **kw)
+    cpu = mlp.train_mlp(x, y, device="cpu", **kw)
+    assert card[0]["w"].device.type == "cuda"
+    got, want = mlp.predict(card, x), mlp.predict(cpu, x)
+    np.testing.assert_allclose(got, want, rtol=0, atol=FIT_TOL)
+
+
+def test_collect_on_card_equals_cpu(cuda, monkeypatch):
+    """`collect` on the tiny spec, on the card and on the CPU: the same
+    features bit for bit (the `selectivity` kernel counts exactly), the
+    same queries and ground truth, table B's recalls within SWEEP_TOL.
+    The runs' clock is fixed, so recall ties pick the same setting."""
+    import itertools
+
+    from repro_torch.ann import bench
+    from repro_torch.ann.index import FilteredIndex
+    from repro_torch.core import training as T
+    from repro_torch.data.ann_synth import DatasetSpec, synthesize
+
+    tick = itertools.count()
+    monkeypatch.setattr(bench, "time", type(
+        "Clock", (), {"perf_counter": staticmethod(
+            lambda: float(next(tick)))}))
+    ds = synthesize(DatasetSpec("tiny", 600, 24, 40, 6, 8, 1.3, 2.0, 0.5,
+                                0.3, 7))
+    launches = bf.selectivity_count.launches
+    with FilteredIndex(ds) as fxc, FilteredIndex(ds, device="cpu") as fxh:
+        card = T.collect({"tiny": fxc}, n_queries=25, verbose=False)
+        cpu = T.collect({"tiny": fxh}, n_queries=25, verbose=False)
+    assert bf.selectivity_count.launches > launches
+    for key, cell in cpu.cells.items():
+        got = card.cells[key]
+        assert got.numeric.tobytes() == cell.numeric.tobytes(), key
+        assert np.array_equal(got.gt, cell.gt)
+    assert card.table.entries.keys() == cpu.table.entries.keys()
+    worst = max(abs(card.table.entries[k]["recall"] - v["recall"])
+                for k, v in cpu.table.entries.items())
+    assert worst <= SWEEP_TOL

@@ -48,6 +48,22 @@ def test_port_imports_with_jax_and_reference_blocked():
         "from repro_torch.ann.obslog import WideEventLog, PostmortemDumper",
         "from repro_torch.ann.metrics import metrics_text, MetricsServer",
         "from repro_torch.common import artifacts_dir",
+        "from repro_torch.core.training import (collect, assemble_xy, "
+        "train_models_from_xy, train_models, train_router, build_all, "
+        "Collection, CellRecord, METHOD_ORDER)",
+        "from repro_torch.core.mlp import (init_mlp, train_mlp, predict, "
+        "params_to_numpy)",
+        "from repro_torch.core.baselines import (PerMethodRegressor, "
+        "BestMethodClassifier, ridge_fit)",
+        "from repro_torch.core.forest import RandomForest",
+        "from repro_torch.core.oracle import oracle_recall, oracle_choice",
+        "from repro_torch.core.rule_router import RuleRouter",
+        "from repro_torch.ann.bench import sweep",
+        "from repro_torch.ann.index import default_index, as_index, "
+        "clear_pool",
+        "from repro_torch.data.ann_synth import get_dataset",
+        "assert hasattr(__import__('repro_torch.ann.dataset', "
+        "fromlist=['ANNDataset']).ANNDataset, 'cache_key')",
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))",
         "               for m in sys.modules if sys.modules[m] is not None)",
         "print('ok')",

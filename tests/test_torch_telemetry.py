@@ -504,23 +504,65 @@ def test_adaptation_promote_then_rollback_as_reference(tiny_ds, tds,
     assert TRouter.load(tpath).table.entries == loaded.table.entries
 
 
-def test_default_retrain_raises_until_training_lands(tds):
-    _, tt = two_method_tables(tds.name)
-    router = ttel.constant_router(tF.MINIMAL_FEATURES, list(PAIR), tt)
-    with TFX(tds, device="cpu") as fx:
-        sink = ttel.TelemetrySink(capacity=64, reservoir=32, seed=1)
-        svc = TService(fx, router, t=0.9, telemetry=sink)
-        adapter = ttel.OnlineRouterAdapter(svc, sink, min_samples=1)
-        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-            adapter._default_retrain(adapter)
-        # a step past the drift threshold propagates it, never "no
-        # candidate"
-        adapter.drift_threshold = 0.0
-        _, tb = batches(tds, Predicate.AND, q=16)
-        svc.search(tb)
-        with pytest.raises(NotImplementedError):
-            adapter.step()
+def test_default_retrain_learns_from_audit_labels(tiny_ds, tds,
+                                                  monkeypatch):
+    """The real retrain path (`tests/test_telemetry.py`'s test of the same
+    name): audit-derived per-method recall labels ->
+    `train_models_from_xy` -> shadow eval. The incumbent routes everything
+    to a degraded method, so the audit-trained candidate should beat it
+    and promote. Both packages get the same traffic: the retrain fires at
+    the same step in both and trains on the same features and labels
+    (the fits themselves start from different initial weights)."""
+    from repro.core import training as JT
+    from repro_torch.core import training as TT
+
+    fitted = {}
+    for name, T in (("jax", JT), ("torch", TT)):
+        def spy(x_raw, y, methods, *, _real=T.train_models_from_xy,
+                _name=name, **kw):
+            fitted[_name] = (x_raw, y, list(methods), kw)
+            return _real(x_raw, y, methods, **kw)
+        monkeypatch.setattr(T, "train_models_from_xy", spy)
+    jr, tr = _constant_routers(tiny_ds)
+    jb, tb = batches(tiny_ds, Predicate.AND, q=32)
+    runs = []
+    with JFX(tiny_ds) as jfx, TFX(tds, device="cpu") as tfx:
+        for fx, router, svc_cls, tel, cand, b in (
+                (jfx, jr, JService, jtel, jcand(), jb),
+                (tfx, tr, TService, ttel, tcand(), tb)):
+            sink = tel.TelemetrySink(capacity=512, reservoir=96, seed=6)
+            svc = svc_cls(fx, router, t=0.9,
+                          methods=_degraded(cand, tel, keep=1),
+                          telemetry=sink)
+            adapter = tel.OnlineRouterAdapter(
+                svc, sink, alpha=0.5, drift_threshold=0.05, min_samples=8,
+                retrain_epochs=30, retrain_hidden=(16,), seed=7)
+            report = None
+            for step in range(8):
+                svc.search(b)
+                rep = adapter.step()
+                if rep.get("retrained"):
+                    report = (step, rep)
+                    break
+            runs.append((report, svc, router))
+    (jrep, _, _), (trep, svc, router) = runs
+    assert trep is not None and jrep is not None
+    assert trep[0] == jrep[0]                      # the same step
+    report = trep[1]
+    assert "shadow" in report
+    if report["promoted"]:
+        assert svc.router is not router
+        assert report["shadow"]["candidate_recall"] > \
+            report["shadow"]["incumbent_recall"]
+    else:                       # rollback keeps the incumbent
         assert svc.router is router
+    assert report["shadow"]["incumbent_recall"] == \
+        jrep[1]["shadow"]["incumbent_recall"]
+    jx, jy, jm, jkw = fitted["jax"]
+    tx, ty, tm, tkw = fitted["torch"]
+    assert tx.tobytes() == jx.tobytes() and np.array_equal(ty, jy)
+    assert tm == jm == list(PAIR)
+    assert tkw == dict(jkw, device=torch.device("cpu"))
 
 
 class _TensorMethod:
