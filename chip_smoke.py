@@ -58,7 +58,7 @@ not 0):
              k > 128 masked top-k against their plain versions (bit-
              identical on grids, and held to summation order on the live
              path's inputs); then `LiveFilteredIndex(ds, delta_chunk=512)`
-             on the card: 65,536 upserts (base rows picked by a seeded
+             on the card: 32,768 upserts (base rows picked by a seeded
              generator, + 0.01, with their bitmaps), 1,000 base and 500
              delta deletes, and the reference answers (the exact batches
              read with the chunk pruner off, recall truths, the queue's
@@ -141,7 +141,7 @@ not 0):
              base top-k held to the plain versions), the deletes
              re-issued;
              `checkpoint()`, close and open (only the checkpoint's seeded
-             records replayed, the 128 delta-chunk indexes adopted, none
+             records replayed, the 64 delta-chunk indexes adopted, none
              built, reads equal B); a byte inside the WAL's first record
              damaged, and open refused the mid-log corruption without
              truncating; a byte of a linked router copy's `table.json`
@@ -224,8 +224,38 @@ not 0):
              ivf_gamma on the 1M handle. Then one profiled pass of the
              sweep over `ytb_audio` (its indexes built) and of a 20-epoch
              fit.
+14. rag    — the RAG example's served LM (`examples/rag_serve.py`'s
+             default architecture, qwen2-0.5b) at its full width on the
+             card, random weights from seed 0: (a) `init_params` of its
+             630,167,424 parameters, their fp32 and bf16 bytes and the
+             peak device memory; (b) fp32 compute, TF32 off, the same
+             weights on the card and on the machine's CPU: 2 prompts of
+             64 tokens, prefill's and the first decode step's logits
+             within B_TOL, 8 greedy tokens equal or parted at a near-tie,
+             `generate` equal to the step trace, the CPU's one-ulp move
+             of the input embeddings printed beside; (c) prefill against
+             decode in bf16 (the reference's consistency test at full
+             width): argmax equal, logits within 0.15; (d) the RAG path
+             on phase 5's handle and router: 32 requests drawn as the
+             example draws them, embedded by the LM (prefill's first 192
+             logits), sent one by one through `AsyncBatchQueue(
+             RouterService(fx, router_all), max_batch=16, max_wait_ms=20)`
+             and through one with `method="prefilter"`, the launch counts
+             set to 0 just before and read just after (the kernels line's
+             `launches_by_path.rag`): every answer equal to the batched
+             search of its predicate's requests, every id passing its
+             predicate; then up to 4 retrieved ids appended as tokens and
+             8 tokens generated, the first decode step within 0.15 of a
+             prefill over prompt plus first token; the embed, route and
+             retrieve, and generate milliseconds and routed recall@5
+             against the `prefilter` answers; (e) 8 prompts of 2,048
+             tokens and 32 new ones in bf16: prefill ms and decode ms a
+             step (medians of 3 passes after a warm-up), tokens a second,
+             peak memory, one profiled pass's idle share (the device's
+             activity alone), and the bounds from the shapes.
 
-The last three lines are nvidia-smi's name and power limit, the kernels'
+Every line carries "t", the seconds since the script started. The last
+three lines are nvidia-smi's name and power limit, the kernels'
 JSON line (`merge_topk`'s row with `by_input`: each input kind's ms,
 `torch.topk` ms and bound, and the time before its redesign where
 PERF.md has one, labelled as copied) and `{"ok": true, "device":
@@ -247,6 +277,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -269,6 +300,7 @@ from repro_torch.ann.live import (LiveFilteredIndex,  # noqa: E402
 from repro_torch.ann.predicates import (PREDICATES, Predicate,  # noqa: E402
                                         eval_predicate_np)
 from repro_torch.ann import graph  # noqa: E402
+from repro_torch.ann import labels as lb  # noqa: E402
 from repro_torch.ann import trace as trace_mod  # noqa: E402
 from repro_torch.ann.cache import SemanticResultCache  # noqa: E402
 from repro_torch.ann.ledger import get_ledger  # noqa: E402
@@ -299,6 +331,10 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitmap_filter as bf  # noqa: E402
 from repro_torch.kernels import masked_topk as mk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import common as lm_common  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): fp32
 # outside the tensor cores, and HBM3. 32-bit integer operations (add,
@@ -322,11 +358,14 @@ GT_QUERIES = 32
 SHARDS = 4
 QUEUE_PER_PRED = 100
 
-# The live path: upserts into the 1M-row base (50 MB of delta vectors,
-# 128 sealed chunks of LIVE_CHUNK rows, past the pruner's 4 x LIVE_CHUNK),
-# then deletes that make the base overfetch k + 1,000 -> 1,016 and the
-# staged delta overfetch k + 500 -> 512, both past MAX_K.
-LIVE_UPSERTS = 65_536
+# The live path: upserts into the 1M-row base (25 MB of delta vectors,
+# 64 sealed chunks of LIVE_CHUNK rows, 16 times the pruner's 4 x
+# LIVE_CHUNK), then deletes that make the base overfetch k + 1,000 ->
+# 1,016 and the staged delta overfetch k + 500 -> 512, both past MAX_K.
+# (65,536 upserts until phase 14 was added; halved to keep the script
+# within its time: the fvamana graft's host loop, most of the live
+# compaction, runs over every upserted row.)
+LIVE_UPSERTS = 32_768
 LIVE_BASE_DELETES = 1_000
 LIVE_DELTA_DELETES = 500
 LIVE_CHUNK = 512
@@ -375,8 +414,13 @@ KERNEL_WRAPPERS = {"masked_topk": mk.masked_topk_accum,
                    "masked_topk_large": mk.masked_topk_large}
 
 
+# The clock every line's "t" (seconds since the script started) reads.
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - T0,
+                      **fields}, default=float), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -3301,7 +3345,7 @@ def run_single_store(root: str, fx, ds, table_rows, phase8: dict,
     decisions to its answers `phase8["routed"]`); then close/open (reads
     equal B, 0 builds), a torn WAL tail (reads equal A, their kernels
     held to the plain versions; the deletes re-issued), `checkpoint()` and
-    open (the seeded records replayed, the 128 delta-chunk indexes adopted
+    open (the seeded records replayed, the 64 delta-chunk indexes adopted
     and none built), a byte of the WAL's first record damaged (open
     refuses the mid-log corruption and leaves the file), and a router
     artifact edited under the store (open refuses it). Recovered reads add
@@ -3871,25 +3915,457 @@ def run_train_retrain(fx, batch) -> dict:
             "routes_after": sorted({d.method for d in svc.route(batch)})}
 
 
-def profile_phase(name: str, fn) -> None:
+# ---------------------------------------------------------------------------
+# phase 14: the RAG example's served LM at qwen2-0.5b's full width
+# ---------------------------------------------------------------------------
+
+# The model `examples/rag_serve.py` serves by default, at its full width
+# (24 layers, d_model 896, 14 heads, 2 KV heads, d_ff 4,864, vocab
+# 151,936), random weights from seed 0 as both serving drivers use.
+RAG_ARCH = "qwen2-0.5b"
+RAG_PARAMS = 630_167_424
+# (b) the card against the machine's CPU, fp32 compute with TF32 off:
+# B_PROMPTS prompts of B_LEN tokens, B_NEW greedy tokens each. On the
+# CPU (this port at 2-8 layers of full width) the prefill's and the first
+# decode step's logits move by 4-6e-6 when the input embeddings move by
+# one ulp, at logits of magnitude 4.5; the card's and the CPU's fp32
+# GEMMs part by their summation orders in each of the 24 layers' seven
+# products, a random walk of about 170 such roundings. B_TOL is about
+# 200 times the one-ulp move; each run prints the one-ulp move at full
+# depth on the machine's CPU beside it.
+B_PROMPTS, B_LEN, B_NEW = 2, 64, 8
+B_TOL = 1e-3
+# (c) and (d): the reference's own prefill/decode tolerance on bf16
+# (tests/test_models.py::test_prefill_decode_consistency).
+C_LEN = 16
+BF16_TOL = 0.15
+# (d) the RAG example's traffic: RAG_REQUESTS requests of RAG_PROMPT
+# tokens drawn as `examples/rag_serve.py` draws them, k = RAG_K through
+# AsyncBatchQueue(max_batch=16, max_wait_ms=20), RAG_NEW tokens each.
+RAG_REQUESTS, RAG_PROMPT, RAG_K, RAG_NEW = 32, 32, 5, 8
+# (e) a longer serving shape: E_BATCH prompts of E_LEN tokens, E_NEW new
+# tokens (the cache holds 2,112 positions), bf16 compute, ModelCtx's
+# default query chunk (256); E_PASSES timed passes after a warm-up.
+E_BATCH, E_LEN, E_NEW, E_PASSES = 8, 2048, 32, 3
+BF16_FLOPS = 989e12
+
+
+def lm_trace(params, cfg, prompts, max_new: int, ctx):
+    """What `serve.generate` computes, step by step: the padded prefill
+    with `prompt_len`, then greedy decode; returns (tokens [B, max_new]
+    int, each step's next-token logits [B, V] as fp32 numpy). The
+    parameters must already be in the compute dtype."""
+    max_len = len(prompts[0])
+    s_max = -(-(max_len + max_new) // 64) * 64
+    tokens, _ = serve.pad_prompts(prompts, s_max)
+    dev = params["embed"].device
+    logits, cache = lm.forward_prefill(params, {"tokens": tokens.to(dev)},
+                                       cfg, ctx, prompt_len=max_len)
+    out, steps = [], []
+    for i in range(max_new):
+        steps.append(logits[:, -1].float().cpu().numpy())
+        nxt = torch.argmax(logits[:, -1], dim=-1)
+        out.append(nxt)
+        if i + 1 < max_new:
+            logits, cache = lm.forward_decode(params, cache, nxt[:, None],
+                                              max_len + i, cfg, ctx)
+    return torch.stack(out, 1).cpu().numpy(), steps
+
+
+def top2_gap(logits: np.ndarray) -> np.ndarray:
+    top = np.sort(logits, axis=-1)[:, -2:]
+    return top[:, 1] - top[:, 0]
+
+
+def run_rag_model(dev) -> tuple:
+    """Phase 14 (a): qwen2-0.5b at full width, `init_params(seed=0)` on
+    the card; its size, bytes and peak device memory. Returns (the
+    config, the fp32 parameters, the line's fields)."""
+    cfg = lm_configs.get_config(RAG_ARCH)
+    desc = lm.model_desc(cfg)
+    n = lm_common.count_params(desc)
+    if n != RAG_PARAMS:
+        raise AssertionError(f"{RAG_ARCH}: {n} parameters, not {RAG_PARAMS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_common.init_params(desc, seed=0, device=dev)
+    torch.cuda.synchronize()
+    fields = {"arch": RAG_ARCH, "config": dataclasses.asdict(cfg),
+              "params": n, "fp32_bytes": 4 * n, "bf16_bytes": 2 * n,
+              "init_s": time.perf_counter() - t0,
+              "peak_device_mb": torch.cuda.max_memory_allocated() / 1e6,
+              "seconds": time.perf_counter() - t0}
+    emit("rag.model", **fields)
+    return cfg, params, fields
+
+
+def run_rag_devices(cfg, params, dev) -> dict:
+    """Phase 14 (b): fp32 compute, TF32 off, the same weights on the card
+    and on the machine's CPU: B_PROMPTS prompts of B_LEN tokens through
+    `lm_trace` on each device. Prefill's logits and the first decode
+    step's within B_TOL; the B_NEW greedy tokens equal, or parted at a
+    near-tie (the top-2 gap within B_TOL on both devices). `generate` on
+    the card gives the trace's tokens. Beside it, the CPU's prefill with
+    the input embeddings moved by one ulp."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on")
+    t_phase = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ctx = lm.ModelCtx(qc_prefill=64, gla_chunk=64)      # generate's own
+    rng = np.random.default_rng(1)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, size=B_LEN)))
+               for _ in range(B_PROMPTS)]
+    t0 = time.perf_counter()
+    card_toks, card_steps = lm_trace(params, cfg32, prompts, B_NEW, ctx)
+    card_s = time.perf_counter() - t0
+    gen = serve.generate(params, cfg32, prompts, max_new=B_NEW)
+    if not np.array_equal(gen, card_toks):
+        raise AssertionError("generate() differs from the step trace")
+    host = lm_common.map_descs(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    cpu_toks, cpu_steps = lm_trace(host, cfg32, prompts, B_NEW, ctx)
+    cpu_s = time.perf_counter() - t0
+    moved = dict(host, embed=torch.nextafter(
+        host["embed"], torch.tensor(float("inf"))))
+    ulp_steps = lm_trace(moved, cfg32, prompts, 2, ctx)[1]
+    del host, moved
+    one_ulp = [float(np.abs(a - b).max())
+               for a, b in zip(cpu_steps[:2], ulp_steps)]
+    errs = [float(np.abs(a - b).max()) for a, b in zip(card_steps,
+                                                       cpu_steps)]
+    if max(errs[:2]) > B_TOL:
+        raise AssertionError(f"card vs CPU: prefill/first decode logits "
+                             f"differ by {errs[:2]} > {B_TOL}")
+    parted = None
+    for i in range(B_NEW):
+        if not np.array_equal(card_toks[:, i], cpu_toks[:, i]):
+            parted = i
+            rows = card_toks[:, i] != cpu_toks[:, i]
+            gaps = (top2_gap(card_steps[i])[rows],
+                    top2_gap(cpu_steps[i])[rows])
+            if max(g.max() for g in gaps) > B_TOL:
+                raise AssertionError(
+                    f"greedy tokens part at step {i} without a near-tie: "
+                    f"top-2 gaps {gaps}")
+            break
+    fields = {"prompts": B_PROMPTS, "prompt_len": B_LEN, "new": B_NEW,
+              "tol": B_TOL, "max_abs_err_prefill": errs[0],
+              "max_abs_err_decode1": errs[1],
+              "max_abs_err_later_steps": errs[2:],
+              "one_ulp_embed_move_cpu": one_ulp,
+              "logit_max_abs": float(np.abs(cpu_steps[0]).max()),
+              "tokens_equal": parted is None, "parted_at_step": parted,
+              "min_top2_gap": float(min(top2_gap(s).min()
+                                        for s in card_steps)),
+              "card_s": card_s, "cpu_s": cpu_s, "tokens": cpu_toks.tolist(),
+              "seconds": time.perf_counter() - t_phase}
+    emit("rag.card_vs_cpu", **fields)
+    return fields
+
+
+def run_rag_consistency(cfg, params16, dev) -> dict:
+    """Phase 14 (c): the reference's prefill/decode consistency at full
+    width in bf16 on the card: prefill over C_LEN tokens gives the
+    next-token logits of a prefill over C_LEN - 1 (padded, `prompt_len`)
+    and one decode step of the last token; argmax equal, logits within
+    BF16_TOL."""
+    t_phase = time.perf_counter()
+    ctx = lm.ModelCtx(qc_prefill=C_LEN, gla_chunk=C_LEN)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, size=(2, C_LEN))
+                            ).to(dev)
+    full, _ = lm.forward_prefill(params16, {"tokens": toks}, cfg, ctx)
+    _, cache = lm.forward_prefill(params16, {"tokens": toks}, cfg, ctx,
+                                  prompt_len=C_LEN - 1)
+    step, _ = lm.forward_decode(params16, cache, toks[:, -1:], C_LEN - 1,
+                                cfg, ctx)
+    a, b = full[:, -1].cpu().numpy(), step[:, -1].cpu().numpy()
+    err = float(np.abs(a - b).max())
+    if not (a.argmax(-1) == b.argmax(-1)).all() or err > BF16_TOL:
+        raise AssertionError(f"prefill vs decode: argmax {a.argmax(-1)} / "
+                             f"{b.argmax(-1)}, max |delta| {err}")
+    fields = {"len": C_LEN, "tol": BF16_TOL, "max_abs_err": err,
+              "argmax_equal": True, "seconds": time.perf_counter() - t_phase}
+    emit("rag.prefill_vs_decode", **fields)
+    return fields
+
+
+def rag_requests(ds):
+    """`examples/rag_serve.py`'s requests over `ds`: prompts, predicates
+    and query bitmaps (one label of a random row, two for OR), from
+    `np.random.default_rng(0)`."""
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, 400, size=(RAG_REQUESTS, RAG_PROMPT))
+    preds = [Predicate(int(p)) for p in rng.integers(0, 3,
+                                                     size=RAG_REQUESTS)]
+    qbms = np.zeros((RAG_REQUESTS, ds.bitmaps.shape[1]), np.uint32)
+    for i in range(RAG_REQUESTS):
+        src = sorted(lb.unpack_one(ds.bitmaps[rng.integers(0, ds.n)]))
+        qbms[i] = lb.pack_one(src[: 1 + int(preds[i] == Predicate.OR)],
+                              ds.universe)
+    return prompts, preds, qbms
+
+
+def queue_answers(queue, emb, qbms, preds) -> list:
+    futs = [queue.submit(emb[i], qbms[i], preds[i], k=RAG_K)
+            for i in range(len(preds))]
+    return [f.result(timeout=300) for f in futs]
+
+
+def run_rag_path(fx, router, cfg, params16, dev) -> tuple:
+    """Phase 14 (d): the RAG example's path at full width. The LM embeds
+    RAG_REQUESTS prompts (prefill's logits[:, 0, :dim]); the requests go
+    one by one through `AsyncBatchQueue(RouterService(fx, router, t=0.9),
+    max_batch=16, max_wait_ms=20)` and through one over `fx` with
+    `method="prefilter"`, with the launch counts set to 0 just before and
+    read just after; every answer equals the batched search of its
+    predicate's requests (made before the counts are set to 0) and every
+    id passes its predicate; then up to 4 retrieved ids are appended as
+    tokens and `generate` makes RAG_NEW tokens, whose first decode step
+    agrees with a prefill over prompt plus first token within BF16_TOL.
+    Returns (the line's fields, the launch counts)."""
+    t_phase = time.perf_counter()
+    ds = fx.ds
+    ctx = lm.ModelCtx(qc_prefill=32, gla_chunk=32)   # the example's
+    prompts, preds, qbms = rag_requests(ds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = lm.forward_prefill(
+        params16, {"tokens": torch.from_numpy(prompts).to(dev)}, cfg, ctx)
+    emb = logits[:, 0, :ds.dim].float().cpu().numpy()
+    embed_s = time.perf_counter() - t0
+    svc = RouterService(fx, router, t=0.9)
+    want = {}
+    for pred in PREDICATES:
+        rows = np.array([i for i in range(RAG_REQUESTS) if preds[i] == pred])
+        if rows.size:
+            batch = QueryBatch(emb[rows], qbms[rows], int(pred), RAG_K)
+            want[int(pred)] = (rows, svc.search(batch),
+                               fx.search(batch, "prefilter"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with AsyncBatchQueue(svc, max_batch=16, max_wait_ms=20.0) as queue:
+        routed = queue_answers(queue, emb, qbms, preds)
+        q_routed = queue.stats()
+    route_s = time.perf_counter() - t0
+    with AsyncBatchQueue(fx, max_batch=16, max_wait_ms=20.0,
+                         method="prefilter") as queue:
+        exact = queue_answers(queue, emb, qbms, preds)
+        q_exact = queue.stats()
+    launches = read_launches()
+    for name in ("masked_topk", "selectivity"):
+        if launches[name] == 0:
+            raise AssertionError(f"the RAG path never launched {name}")
+    got_r = np.stack([r.ids for r in routed])
+    got_e = np.stack([r.ids for r in exact])
+    for pred, (rows, w_routed, w_exact) in want.items():
+        if [routed[i].decision for i in rows] != w_routed.decisions:
+            raise AssertionError(f"queued decisions differ from the batched "
+                                 f"search's, {PRED_NAMES[pred]}")
+        for got, w, what in ((got_r, w_routed, "routed"),
+                             (got_e, w_exact, "prefilter")):
+            if not np.array_equal(got[rows], w.ids):
+                raise AssertionError(f"queued {what} ids differ from the "
+                                     f"batched search's, {PRED_NAMES[pred]}")
+        for i in rows:
+            ok = ds.matching_mask(qbms[i], Predicate(pred))
+            if not all(ok[x] for x in np.concatenate([got_r[i], got_e[i]])
+                       if x >= 0):
+                raise AssertionError(f"request {i}: an id fails its "
+                                     f"predicate")
+    recall = float(recall_at_k(got_r, got_e).mean())
+    aug = [list(map(int, prompts[i])) +
+           [int(x) % cfg.vocab for x in got_r[i] if x >= 0][:4]
+           for i in range(RAG_REQUESTS)]
+    width = max(len(a) for a in aug)
+    aug = [a + [0] * (width - len(a)) for a in aug]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve.generate(params16, cfg, aug, max_new=RAG_NEW)
+    gen_s = time.perf_counter() - t0
+    toks, steps = lm_trace(params16, cfg, aug, 2,
+                           lm.ModelCtx(qc_prefill=64, gla_chunk=64))
+    if not np.array_equal(toks, out[:, :2]):
+        raise AssertionError("generate() differs from the step trace")
+    longer = [a + [int(t)] for a, t in zip(aug, out[:, 0])]
+    again, _ = lm.forward_prefill(
+        params16, {"tokens": torch.tensor(longer, device=dev)}, cfg,
+        lm.ModelCtx(qc_prefill=64, gla_chunk=64))
+    again = again[:, -1].cpu().numpy()
+    err = float(np.abs(steps[1] - again).max())
+    # the argmax is held where the prefill's top-2 gap is past 2 BF16_TOL;
+    # at random init some of the 32 rows are near-ties
+    differs = steps[1].argmax(-1) != again.argmax(-1)
+    gaps = top2_gap(again)
+    if err > BF16_TOL or (differs & (gaps > 2 * BF16_TOL)).any():
+        raise AssertionError(f"the first decode step vs a prefill over prompt "
+                             f"+ first token: max |delta| {err}, argmax "
+                             f"differs at top-2 gaps {gaps[differs]}")
+    fields = {"requests": RAG_REQUESTS, "prompt_len": RAG_PROMPT, "k": RAG_K,
+              "new": RAG_NEW, "aug_width": width,
+              "embed_ms": embed_s * 1e3, "route_retrieve_ms": route_s * 1e3,
+              "route_retrieve_us_per_request": route_s / RAG_REQUESTS * 1e6,
+              "generate_ms": gen_s * 1e3,
+              "routed_recall_at_5_vs_prefilter": recall,
+              "decisions": sorted(Counter(r.decision.method
+                                          for r in routed).items()),
+              "queue_routed": {k: q_routed[k] for k in
+                               ("batches", "max_batch_seen",
+                                "flush_reasons")},
+              "queue_prefilter_batches": q_exact["batches"],
+              "same_as_batched": True, "ids_pass_predicates": True,
+              "decode_vs_prefill_max_abs_err": err,
+              "decode_vs_prefill_argmax_differs": int(differs.sum()),
+              "decode_vs_prefill_gaps_where_differs": gaps[differs].tolist(),
+              "hit_rate": float((got_r >= 0).any(1).mean()),
+              "sample_generations": out[:2].tolist(), "launches": launches,
+              "seconds": time.perf_counter() - t_phase}
+    emit("rag.path", **fields)
+    return fields, launches
+
+
+def run_rag_serving(cfg, params16, dev) -> dict:
+    """Phase 14 (e): E_BATCH prompts of E_LEN tokens and E_NEW new tokens
+    in bf16, the way `generate` runs them (padded prefill, then greedy
+    decode steps): prefill ms and decode ms a step (medians of E_PASSES
+    passes after a warm-up, host clock after `torch.cuda.synchronize()`),
+    generated tokens a second, peak device memory, one profiled pass's
+    idle share, and the two bounds from the shapes."""
+    t_phase = time.perf_counter()
+    ctx = lm.ModelCtx()
+    rng = np.random.default_rng(2)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, size=E_LEN)))
+               for _ in range(E_BATCH)]
+    s_max = -(-(E_LEN + E_NEW) // 64) * 64
+    tokens = serve.pad_prompts(prompts, s_max)[0].to(dev)
+
+    def one_pass():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.forward_prefill(params16, {"tokens": tokens},
+                                           cfg, ctx, prompt_len=E_LEN)
+        nxt = torch.argmax(logits[:, -1], dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(E_NEW - 1):
+            logits, cache = lm.forward_decode(params16, cache, nxt[:, None],
+                                              E_LEN + i, cfg, ctx)
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+        torch.cuda.synchronize()
+        return t1 - t0, (time.perf_counter() - t1) / (E_NEW - 1)
+
+    torch.cuda.reset_peak_memory_stats()
+    one_pass()
+    passes = [one_pass() for _ in range(E_PASSES)]
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    prefill_s = sorted(p[0] for p in passes)[E_PASSES // 2]
+    step_s = sorted(p[1] for p in passes)[E_PASSES // 2]
+    t_prof = time.perf_counter()
+    prof = profile_phase("rag_serving", one_pass, host_ops=False)
+    profile_s = time.perf_counter() - t_prof
+    n_embed = cfg.vocab * cfg.d_model
+    n_body = lm_common.count_params(lm.model_desc(cfg)) - 2 * n_embed
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2   # bf16 K and V
+    # prefill: every layer over the B x s_max padded tokens, the head at
+    # the last position only, and the attention products unskipped (each
+    # query chunk against all s_max keys); the operations bound it
+    toks = E_BATCH * s_max
+    attn = 2 * 2 * E_BATCH * cfg.n_heads * s_max * s_max * cfg.hd \
+        * cfg.n_layers
+    pre_ops = 2 * n_body * toks + 2 * n_embed * E_BATCH + attn
+    pre_bytes = 2 * (n_body + n_embed) + toks * kv_row
+    # decode: a step reads the bf16 layers and head once (the embedding
+    # table only at B rows) and the cache up to its position; the mean
+    # step is at E_LEN + (E_NEW - 2) / 2
+    mean_len = E_LEN + (E_NEW - 2) / 2 + 1
+    dec_bytes = 2 * (n_body + n_embed) + E_BATCH * mean_len * kv_row \
+        + E_BATCH * cfg.vocab * 4
+    dec_ops = 2 * (n_body + n_embed) * E_BATCH + 2 * 2 * E_BATCH \
+        * cfg.n_heads * mean_len * cfg.hd * cfg.n_layers
+    bound = lambda ops, nbytes: max(ops / BF16_FLOPS, nbytes / HBM_BYTES_S)
+    fields = {
+        "batch": E_BATCH, "prompt_len": E_LEN, "new": E_NEW, "s_max": s_max,
+        "qc_prefill": ctx.qc_prefill, "passes": E_PASSES,
+        "prefill_ms": prefill_s * 1e3, "decode_ms_per_step": step_s * 1e3,
+        "prefill_ms_passes": [p[0] * 1e3 for p in passes],
+        "decode_ms_per_step_passes": [p[1] * 1e3 for p in passes],
+        "tokens_per_s": E_BATCH * E_NEW / (prefill_s
+                                           + (E_NEW - 1) * step_s),
+        "peak_device_mb": peak,
+        "device_idle_share": prof["device_idle_share"],
+        "prefill_bound_ms": bound(pre_ops, pre_bytes) * 1e3,
+        "prefill_bound_by": ("operations" if pre_ops / BF16_FLOPS
+                             >= pre_bytes / HBM_BYTES_S else "bytes"),
+        "prefill_tflop": pre_ops / 1e12, "attention_tflop": attn / 1e12,
+        "decode_bound_ms": bound(dec_ops, dec_bytes) * 1e3,
+        "decode_bound_by": ("operations" if dec_ops / BF16_FLOPS
+                            >= dec_bytes / HBM_BYTES_S else "bytes"),
+        "decode_gb_per_step": dec_bytes / 1e9, "profile_s": profile_s,
+        "seconds": time.perf_counter() - t_phase}
+    emit("rag.serving", **fields)
+    return fields
+
+
+def run_rag(fx, router, dev) -> dict:
+    """Phase 14: (a)-(e) above; returns the phase's summary and the RAG
+    path's launch counts under "launches"."""
+    cfg, params, model = run_rag_model(dev)
+    devices = run_rag_devices(cfg, params, dev)
+    params16 = lm_common.cast_floats(params, torch.bfloat16)
+    del params
+    consistency = run_rag_consistency(cfg, params16, dev)
+    path, launches = run_rag_path(fx, router, cfg, params16, dev)
+    serving = run_rag_serving(cfg, params16, dev)
+    del params16
+    torch.cuda.empty_cache()
+    return {"model": {k: model[k] for k in ("params", "fp32_bytes",
+                                            "bf16_bytes", "peak_device_mb")},
+            "card_vs_cpu": {k: devices[k] for k in (
+                "max_abs_err_prefill", "max_abs_err_decode1", "tol",
+                "one_ulp_embed_move_cpu", "tokens_equal", "parted_at_step")},
+            "prefill_vs_decode": consistency,
+            "path": {k: path[k] for k in (
+                "embed_ms", "route_retrieve_ms", "generate_ms",
+                "routed_recall_at_5_vs_prefilter")},
+            "serving": {k: serving[k] for k in (
+                "prefill_ms", "decode_ms_per_step", "tokens_per_s",
+                "peak_device_mb", "device_idle_share", "prefill_bound_ms",
+                "decode_bound_ms")},
+            "launches": launches}
+
+
+def profile_phase(name: str, fn, host_ops: bool = True) -> dict:
     """`fn()` once under torch.profiler: wall time, the device's busy time
     (the sum of its kernel, copy and fill intervals, which one stream runs
-    one at a time), the idle share, and the kernels that took most."""
+    one at a time), the idle share, and the kernels that took most (by
+    operator, or by kernel name without `host_ops`, which records the
+    device's activity alone: a pass of hundreds of thousands of operators
+    costs the profiler tens of seconds to read back). Returns the line's
+    fields."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == DeviceType.CUDA)
+    if busy_us == 0:
+        raise AssertionError(f"profile {name}: no device activity recorded")
     avgs = sorted(prof.key_averages(),
                   key=lambda a: a.self_device_time_total, reverse=True)
     top = [[a.key[:70], a.self_device_time_total / 1e3, a.count]
            for a in avgs[:6] if a.self_device_time_total > 0]
-    emit(f"profile.{name}", wall_s=wall, device_busy_s=busy_us / 1e6,
-         device_idle_share=1.0 - busy_us / 1e6 / wall, top_device_ms=top)
+    fields = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+              "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+              "top_device_ms": top}
+    emit(f"profile.{name}", **fields)
+    return fields
 
 
 # ---------------------------------------------------------------------------
@@ -4336,15 +4812,26 @@ def main() -> int:
     for name in ("masked_topk", "selectivity"):
         if launches_train[name] == 0:
             raise AssertionError(f"the offline stage never launched {name}")
+    # the device's activity alone: read back with the host's operators,
+    # these two passes cost the profiler about 50 and 20 s
     profile_phase("train_sweep", lambda: training.collect(
         {"ytb_audio": train_handles["ytb_audio"]},
         {m: get_method(m) for m in training.METHOD_ORDER},
-        n_queries=TRAIN_QUERIES, verbose=False))
+        n_queries=TRAIN_QUERIES, verbose=False), host_ops=False)
     profile_phase("train_fit", lambda: training.train_models(
         coll, F.MINIMAL_FEATURES, hidden=TRAIN_HIDDEN,
-        epochs=TRAIN_EPOCHS // 10, device=dev))
+        epochs=TRAIN_EPOCHS // 10, device=dev), host_ops=False)
     for h in train_handles.values():
         h.close()
+
+    # phase 14, the RAG example's served LM at qwen2-0.5b's full width on
+    # phase 5's handle and router; the RAG path's launch counts set to 0
+    # just before its queues and read just after
+    t0 = time.perf_counter()
+    rag = run_rag(fx, svc.router, dev)
+    launches_rag = rag.pop("launches")
+    emit("rag", seconds=time.perf_counter() - t0, launches=launches_rag,
+         **rag)
     serving_total = {name: sum(c[name] for c in launches_serving.values())
                      for name in KERNEL_WRAPPERS}
     launches_by_path = {"main": launches, "sharded": launches_sharded,
@@ -4352,7 +4839,7 @@ def main() -> int:
                         "live": launches_live, "live_staged": launches_staged,
                         "anyk": launches_anyk, "sharded_live": launches_sl,
                         "store": launches_store, "serving": serving_total,
-                        "train": launches_train}
+                        "train": launches_train, "rag": launches_rag}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []
@@ -4385,7 +4872,7 @@ def main() -> int:
              "src/repro/kernels/masked_topk.py:294", launches_live,
              "one launch per predicate on the live read's inputs for the "
              "256-query exact batch (1,016 base candidates a query, the "
-             "chunk pruner's delta rows of 65,536, packed tombstones), "
+             "chunk pruner's delta rows of 32,768, packed tombstones), "
              "summed; launches from the live read path (fused exact, "
              "routed and queued reads; its reference answers are made "
              "before the counts are set to 0)"),

@@ -34,6 +34,11 @@ class MethodRegistry:
         self._candidate[name] = bool(candidate)
         return method
 
+    def unregister(self, name: str) -> None:
+        """Drop `name` (a no-op when it is not registered)."""
+        self._methods.pop(name, None)
+        self._candidate.pop(name, None)
+
     def get(self, name: str):
         try:
             return self._methods[name]
@@ -105,6 +110,11 @@ def register_method(method, *, candidate: bool = True,
     `overwrite=True`."""
     return _DEFAULT.register(method, candidate=candidate,
                              overwrite=overwrite, name=name)
+
+
+def unregister_method(name: str) -> None:
+    """Drop `name` from the default registry (a no-op when absent)."""
+    _DEFAULT.unregister(name)
 
 
 def get_method(name: str):

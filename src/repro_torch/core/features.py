@@ -34,6 +34,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.ann import labels as lb
 from repro_torch.ann.dataset import ANNDataset
 from repro_torch.ann.engine import to_device
 from repro_torch.ann.predicates import Predicate
@@ -340,6 +341,26 @@ def query_feature_arrays(ds: ANNDataset, dsf: DatasetFeatures,
         "max_label_freq": maxf,
         "mean_label_freq": meanf,
         "label_cooccurrence": cooc,
+    }
+
+
+def query_features(ds: ANNDataset, dsf: DatasetFeatures, qbm: np.ndarray,
+                   pred: Predicate) -> dict[str, float]:
+    """Scalar per-query reference of `query_feature_arrays` (one host scan
+    per feature, over the sealed dataset): the oracle its tests and the
+    featureset-latency comparison hold the batched columns to."""
+    labs = sorted(lb.unpack_one(qbm))
+    freqs = np.array([dsf.label_freq[l] for l in labs]) if labs \
+        else np.zeros(1)
+    sel = ds.selectivity(qbm, pred)
+    cooc = ds.selectivity(qbm, Predicate.AND)   # containment fraction
+    return {
+        "n_labels": float(len(labs)),
+        "selectivity": float(sel),
+        "min_label_freq": float(freqs.min()),
+        "max_label_freq": float(freqs.max()),
+        "mean_label_freq": float(freqs.mean()),
+        "label_cooccurrence": float(cooc),
     }
 
 

@@ -143,6 +143,31 @@ class MLRouter:
         names = np.array(self.methods, dtype=object)[j_star]
         return list(zip(names.tolist(), ps_sel.tolist()))
 
+    def route_from_predictions_loop(self, r_hat: np.ndarray, ds_name: str,
+                                    pred: Predicate, t: float):
+        """Scalar per-query Algorithm 2: the parity oracle of
+        `route_from_predictions` for the tests and the routing-latency
+        comparison. Not a hot path."""
+        pt = int(Predicate(pred))
+        ps_of, qps_of = {}, {}
+        for m in self.methods:
+            hit = self.table.best_qps_setting(ds_name, pt, m, t)
+            if hit is not None:
+                ps_of[m], qps_of[m] = hit[0], hit[1]["qps"]
+        decisions = []
+        for qi in range(r_hat.shape[0]):
+            passing = [m for j, m in enumerate(self.methods)
+                       if r_hat[qi, j] >= t and m in ps_of]
+            if passing:
+                m_star = max(passing, key=lambda m: qps_of[m])
+                decisions.append((m_star, ps_of[m_star]))
+            else:  # fallback: argmax predicted recall, max-recall setting
+                m_star = self.methods[int(np.argmax(r_hat[qi]))]
+                hit = self.table.best_qps_setting(ds_name, pt, m_star, t) \
+                    or self.table.max_recall_setting(ds_name, pt, m_star)
+                decisions.append((m_star, hit[0] if hit else None))
+        return decisions
+
     def route(self, ds: ANNDataset, qbms: np.ndarray, pred: Predicate,
               t: float, *, fx=None, device="cuda"):
         r_hat = self.predict_recalls(ds, qbms, pred, fx=fx, device=device)

@@ -62,6 +62,25 @@ def test_port_imports_with_jax_and_reference_blocked():
         "from repro_torch.ann.index import default_index, as_index, "
         "clear_pool",
         "from repro_torch.data.ann_synth import get_dataset",
+        "from repro_torch.common import timer",
+        "from repro_torch.ann.registry import unregister_method",
+        "from repro_torch.core.features import query_features",
+        "from repro_torch.core.router import MLRouter as R",
+        "assert hasattr(R, 'route_from_predictions_loop')",
+        "from repro_torch.configs import (ModelConfig, ShapeSpec, SHAPES, "
+        "ARCH_IDS, get_config, get_smoke_config, registry, "
+        "shape_supported)",
+        "assert len(registry()) == 10",
+        "from repro_torch.models.common import (ParamDesc, is_desc, "
+        "map_descs, count_params, init_params, params_from_numpy, "
+        "cast_floats, rms_norm, layer_norm, rope_freqs, apply_rope)",
+        "from repro_torch.models.attention import (NEG_INF, pick_qc, "
+        "gqa_desc, gqa_train, gqa_prefill, gqa_decode)",
+        "from repro_torch.models.moe import mlp_desc, mlp_apply",
+        "from repro_torch.models.lm import (ModelCtx, layer_kinds, "
+        "layer_desc, model_desc, cache_desc, forward_prefill, "
+        "forward_decode)",
+        "from repro_torch.launch.serve import pad_prompts, generate, main",
         "assert hasattr(__import__('repro_torch.ann.dataset', "
         "fromlist=['ANNDataset']).ANNDataset, 'cache_key')",
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))",
