@@ -253,6 +253,35 @@ not 0):
              step (medians of 3 passes after a warm-up), tokens a second,
              peak memory, one profiled pass's idle share (the device's
              activity alone), and the bounds from the shapes.
+15. families — every other LM family's serving forward at full width,
+             one family at a time, freed before the next: deepseek-v2
+             (MoE + MLA) cut to 2 layers and grok-1 (MoE) to 1, their
+             weights drawn on the card from a seeded generator with
+             `init_params`'s per-leaf std; xlstm-125m, hymba-1.5b and
+             whisper-medium whole through `init_params` (`fam.model`:
+             each count held to the reference's). (d) first:
+             `moe.dispatch` and `_moe_local` on the card against the
+             machine's CPU at deepseek-v2's gate width (E = 160, k = 6)
+             and grok-1's (E = 8, k = 2), 4,096 integer-grid tokens,
+             forced overflow and gate ties: experts, positions, slot
+             table and reach mask bit-identical, y within fp32 order.
+             Then per family: (b) fp32, TF32 off, the same weights on
+             the card and the CPU (the giants at 1 layer): 2 prompts of
+             64 tokens, prefill and 2 decode steps (8 greedy tokens for
+             the small three), logits within B_TOL except rows whose
+             MoE dispatch parted at a near-tie of the gate (each MoE
+             call compared), the one-ulp move beside; (c) prefill
+             against decode in bf16 (the MoE families at capacity
+             factor E/k, with their drops and error at 1.25 beside); (f)
+             8 prompts of 2,048 tokens (whisper: 416 over 1,500 frames)
+             and 32 new ones in bf16 at `ModelCtx()`'s defaults
+             (`gla_chunk` 256), every logit finite, prefill and decode
+             ms, tokens a second, peak memory, the bounds from the
+             shapes (deepseek-v2's also for the routed form, and one
+             profiled pass's idle share). (e) with deepseek-v2: phase
+             14 (d)'s RAG path on phase 5's handle and router, the
+             launch counts set to 0 just before its queues and read
+             just after (`launches_by_path.rag_deepseek`).
 
 Every line carries "t", the seconds since the script started. The last
 three lines are nvidia-smi's name and power limit, the kernels'
@@ -333,8 +362,10 @@ from repro_torch.kernels import masked_topk as mk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import common as lm_common  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): fp32
 # outside the tensor cores, and HBM3. 32-bit integer operations (add,
@@ -3950,17 +3981,21 @@ E_BATCH, E_LEN, E_NEW, E_PASSES = 8, 2048, 32, 3
 BF16_FLOPS = 989e12
 
 
-def lm_trace(params, cfg, prompts, max_new: int, ctx):
+def lm_trace(params, cfg, prompts, max_new: int, ctx, enc=None):
     """What `serve.generate` computes, step by step: the padded prefill
     with `prompt_len`, then greedy decode; returns (tokens [B, max_new]
     int, each step's next-token logits [B, V] as fp32 numpy). The
-    parameters must already be in the compute dtype."""
+    parameters must already be in the compute dtype; `enc` are the
+    encoder-decoder's frame embeddings."""
     max_len = len(prompts[0])
     s_max = -(-(max_len + max_new) // 64) * 64
     tokens, _ = serve.pad_prompts(prompts, s_max)
     dev = params["embed"].device
-    logits, cache = lm.forward_prefill(params, {"tokens": tokens.to(dev)},
-                                       cfg, ctx, prompt_len=max_len)
+    batch = {"tokens": tokens.to(dev)}
+    if enc is not None:
+        batch["enc_inputs"] = enc.to(dev)
+    logits, cache = lm.forward_prefill(params, batch, cfg, ctx,
+                                       prompt_len=max_len)
     out, steps = [], []
     for i in range(max_new):
         steps.append(logits[:, -1].float().cpu().numpy())
@@ -4064,23 +4099,32 @@ def run_rag_devices(cfg, params, dev) -> dict:
     return fields
 
 
-def run_rag_consistency(cfg, params16, dev) -> dict:
-    """Phase 14 (c): the reference's prefill/decode consistency at full
-    width in bf16 on the card: prefill over C_LEN tokens gives the
-    next-token logits of a prefill over C_LEN - 1 (padded, `prompt_len`)
-    and one decode step of the last token; argmax equal, logits within
-    BF16_TOL."""
-    t_phase = time.perf_counter()
+def prefill_vs_decode(cfg, params16, dev, enc=None) -> tuple:
+    """The reference's prefill/decode consistency on the card: prefill
+    over C_LEN tokens, and a prefill over C_LEN - 1 (padded,
+    `prompt_len`) then one decode step of the last token. Returns both
+    next-token logits [2, V] as numpy."""
     ctx = lm.ModelCtx(qc_prefill=C_LEN, gla_chunk=C_LEN)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab, size=(2, C_LEN))
                             ).to(dev)
-    full, _ = lm.forward_prefill(params16, {"tokens": toks}, cfg, ctx)
-    _, cache = lm.forward_prefill(params16, {"tokens": toks}, cfg, ctx,
+    batch = {"tokens": toks}
+    if enc is not None:
+        batch["enc_inputs"] = enc[:2].to(dev)
+    full, _ = lm.forward_prefill(params16, batch, cfg, ctx)
+    _, cache = lm.forward_prefill(params16, batch, cfg, ctx,
                                   prompt_len=C_LEN - 1)
     step, _ = lm.forward_decode(params16, cache, toks[:, -1:], C_LEN - 1,
                                 cfg, ctx)
-    a, b = full[:, -1].cpu().numpy(), step[:, -1].cpu().numpy()
+    return full[:, -1].cpu().numpy(), step[:, -1].cpu().numpy()
+
+
+def run_rag_consistency(cfg, params16, dev) -> dict:
+    """Phase 14 (c): the reference's prefill/decode consistency at full
+    width in bf16 on the card (`prefill_vs_decode`); argmax equal,
+    logits within BF16_TOL."""
+    t_phase = time.perf_counter()
+    a, b = prefill_vs_decode(cfg, params16, dev)
     err = float(np.abs(a - b).max())
     if not (a.argmax(-1) == b.argmax(-1)).all() or err > BF16_TOL:
         raise AssertionError(f"prefill vs decode: argmax {a.argmax(-1)} / "
@@ -4113,7 +4157,8 @@ def queue_answers(queue, emb, qbms, preds) -> list:
     return [f.result(timeout=300) for f in futs]
 
 
-def run_rag_path(fx, router, cfg, params16, dev) -> tuple:
+def run_rag_path(fx, router, cfg, params16, dev, tag: str = "rag.path",
+                 check_cfg=None) -> tuple:
     """Phase 14 (d): the RAG example's path at full width. The LM embeds
     RAG_REQUESTS prompts (prefill's logits[:, 0, :dim]); the requests go
     one by one through `AsyncBatchQueue(RouterService(fx, router, t=0.9),
@@ -4123,8 +4168,10 @@ def run_rag_path(fx, router, cfg, params16, dev) -> tuple:
     predicate's requests (made before the counts are set to 0) and every
     id passes its predicate; then up to 4 retrieved ids are appended as
     tokens and `generate` makes RAG_NEW tokens, whose first decode step
-    agrees with a prefill over prompt plus first token within BF16_TOL.
-    Returns (the line's fields, the launch counts)."""
+    agrees with a prefill over prompt plus first token within BF16_TOL
+    (both under `check_cfg`, default `cfg`: an MoE model's two calls
+    dispatch different token sets, so they are held where nothing drops).
+    Returns (the line's fields, the launch counts); the line is `tag`."""
     t_phase = time.perf_counter()
     ds = fx.ds
     ctx = lm.ModelCtx(qc_prefill=32, gla_chunk=32)   # the example's
@@ -4185,14 +4232,16 @@ def run_rag_path(fx, router, cfg, params16, dev) -> tuple:
     t0 = time.perf_counter()
     out = serve.generate(params16, cfg, aug, max_new=RAG_NEW)
     gen_s = time.perf_counter() - t0
-    toks, steps = lm_trace(params16, cfg, aug, 2,
-                           lm.ModelCtx(qc_prefill=64, gla_chunk=64))
+    ctx64 = lm.ModelCtx(qc_prefill=64, gla_chunk=64)
+    toks, steps = lm_trace(params16, cfg, aug, 2, ctx64)
     if not np.array_equal(toks, out[:, :2]):
         raise AssertionError("generate() differs from the step trace")
-    longer = [a + [int(t)] for a, t in zip(aug, out[:, 0])]
+    if check_cfg is not None:
+        toks, steps = lm_trace(params16, check_cfg, aug, 2, ctx64)
+    longer = [a + [int(t)] for a, t in zip(aug, toks[:, 0])]
     again, _ = lm.forward_prefill(
-        params16, {"tokens": torch.tensor(longer, device=dev)}, cfg,
-        lm.ModelCtx(qc_prefill=64, gla_chunk=64))
+        params16, {"tokens": torch.tensor(longer, device=dev)},
+        check_cfg or cfg, ctx64)
     again = again[:, -1].cpu().numpy()
     err = float(np.abs(steps[1] - again).max())
     # the argmax is held where the prefill's top-2 gap is past 2 BF16_TOL;
@@ -4222,7 +4271,7 @@ def run_rag_path(fx, router, cfg, params16, dev) -> tuple:
               "hit_rate": float((got_r >= 0).any(1).mean()),
               "sample_generations": out[:2].tolist(), "launches": launches,
               "seconds": time.perf_counter() - t_phase}
-    emit("rag.path", **fields)
+    emit(tag, **fields)
     return fields, launches
 
 
@@ -4334,6 +4383,597 @@ def run_rag(fx, router, dev) -> dict:
                 "peak_device_mb", "device_idle_share", "prefill_bound_ms",
                 "decode_bound_ms")},
             "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: every other family's serving forward at full width
+# ---------------------------------------------------------------------------
+
+# The five families beside the dense decoders, at their published widths.
+# The giants are cut in depth only, as far as one 80 GB card forces (the
+# bf16 weights of deepseek-v2's 60 layers are 488 GB): deepseek-v2 to 2
+# layers (this slice's path), grok-1 to 1; the other three run whole.
+# FAM_PARAMS holds the reference's `count_params` at each depth run.
+FAMILIES = ("deepseek-v2-236b", "grok-1-314b", "xlstm-125m", "hymba-1.5b",
+            "whisper-medium")
+FAM_DEPTH = {"deepseek-v2-236b": 2, "grok-1-314b": 1}
+FAM_PARAMS = {("deepseek-v2-236b", 2): 9_153_243_136,
+              ("deepseek-v2-236b", 1): 5_100_912_128,
+              ("grok-1-314b", 1): 6_530_598_912,
+              ("xlstm-125m", 12): 114_491_136,
+              ("hymba-1.5b", 32): 1_350_610_400,
+              ("whisper-medium", 24): 812_523_520}
+# (b) the card against the machine's CPU, fp32, TF32 off: B_PROMPTS
+# prompts of B_LEN tokens; the giants (at 1 layer) prefill and take 2
+# decode steps, the others B_NEW greedy tokens. GATE_TIE: an MoE gate's
+# k-th and k+1-th logits closer than this are a near-tie (the devices'
+# fp32 gate logits part by about 1e-5 at these widths).
+GIANT_STEPS = 3
+GATE_TIE = 1e-3
+# (d) the dispatch at each giant's gate width: D_TOKENS tokens on an
+# integer grid (exact fp32 gate logits on both devices), experts of
+# width D_FF (the dispatch's arithmetic does not depend on it); y within
+# D_TOL of the CPU's (fp32 summation order over d_model terms).
+D_TOKENS, D_FF, D_TOL = 4096, 128, 1e-4
+# (f) F_BATCH prompts of F_LEN tokens and F_NEW new ones in bf16 with
+# ModelCtx()'s defaults (qc_prefill 256, gla_chunk 256); whisper's
+# decoder takes W_LEN + F_NEW = 448 positions (openai/whisper-medium's
+# max_target_positions) over its 1,500 frames. F_PASSES timed passes
+# after a warm-up (one: phase 15's budget is 150 s, and in a check run on
+# the card two passes parted by under 1% on every family but xlstm's
+# launch-bound prefill; PERF.md §6).
+F_BATCH, F_LEN, F_NEW, F_PASSES = 8, 2048, 32, 1
+W_LEN = 416
+
+
+def fam_config(arch: str, layers: int | None = None):
+    cfg = lm_configs.get_config(arch)
+    depth = layers or FAM_DEPTH.get(arch, cfg.n_layers)
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    n = lm_common.count_params(lm.model_desc(cfg))
+    if n != FAM_PARAMS[(arch, depth)]:
+        raise AssertionError(f"{arch} at {depth} layers: {n} parameters, "
+                             f"not {FAM_PARAMS[(arch, depth)]}")
+    return cfg, n
+
+
+def draw_on_card(desc, seed: int, dev):
+    """`init_params`'s leaves (ones, zeros, N(0, init_std^2)) drawn in
+    fp32 on the card from a seeded `torch.Generator(device=...)`: the
+    host draws 1e8 normals a second, the giants need 1e10."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def one(d):
+        if d.one:
+            return torch.ones(d.shape, device=dev)
+        if d.zero:
+            return torch.zeros(d.shape, device=dev)
+        return torch.randn(d.shape, generator=gen, device=dev).mul_(
+            np.float32(lm_common.init_std(d)))
+    return lm_common.map_descs(one, desc)
+
+
+def first_layers(params, n: int):
+    """The parameters of a stacked model's first n layers (views)."""
+    return dict(params, layers=lm_common.map_descs(lambda t: t[:n],
+                                                   params["layers"]))
+
+
+def frames(cfg, b: int, seed: int):
+    """The reference launcher's stand-in frame embeddings, 0.05·N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(0.05 * rng.normal(
+        size=(b, cfg.encoder_seq, cfg.d_model))).float()
+
+
+class DispatchSpy:
+    """While installed, records every MoE dispatch the port makes: per
+    call, each token's chosen experts (as a sorted set), the gap between
+    its k-th and k+1-th gate logit, and whether each assignment reaches
+    its expert (its slot holds its token; past capacity, or the last
+    in-capacity token of an expert that overflowed, it does not)."""
+
+    def __init__(self):
+        self.calls = []
+        self._orig = moe_mod.dispatch
+
+    def __enter__(self):
+        moe_mod.dispatch = self._spy
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.dispatch = self._orig
+
+    def _spy(self, x, wg, cfg):
+        g = self._orig(x, wg, cfg)
+        k, cap = cfg.experts_per_token, g["cap"]
+        top = torch.topk(g["logits"], k + 1, dim=-1).values
+        tok = torch.arange(x.shape[0], device=x.device).repeat_interleave(k)
+        reach = g["table"][g["flat_e"], g["slot_pos"].clamp(max=cap - 1)] \
+            == tok
+        self.calls.append({
+            "sets": torch.sort(g["gidx"], -1).values.cpu().numpy(),
+            "gap": (top[:, k - 1] - top[:, k]).cpu().numpy(),
+            "reach": reach.reshape(-1, k).cpu().numpy()})
+        return g
+
+    def drops(self) -> int:
+        return int(sum((~c["reach"]).sum() for c in self.calls))
+
+
+def parted_rows(a: list, b: list, rows: int) -> tuple:
+    """Compare two runs' dispatches call by call (`DispatchSpy.calls` of
+    the same forwards over `rows` batch rows). A token whose expert set
+    parts must do so at a near-tie (GATE_TIE on both devices' gaps) unless
+    its row parted in an earlier call; capacity drops may part only after
+    an expert set has (a flip moves loads). Returns (the parted rows, the
+    gaps where sets parted)."""
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} vs {len(b)} MoE calls")
+    parted, gaps = set(), []
+    for ca, cb in zip(a, b):
+        s = ca["sets"].shape[0] // rows
+        tok = np.nonzero((ca["sets"] != cb["sets"]).any(-1))[0]
+        for t in tok:
+            gap = float(max(ca["gap"][t], cb["gap"][t]))
+            gaps.append(gap)
+            if t // s not in parted and gap > GATE_TIE:
+                raise AssertionError(f"token {t}'s experts part without a "
+                                     f"near-tie: k/k+1 gap {gap}")
+        parted.update(int(t) // s for t in tok)
+        drop = np.nonzero((ca["reach"] != cb["reach"]).any(-1))[0]
+        if drop.size and not parted:
+            raise AssertionError("capacity drops part with no expert flip")
+        parted.update(int(t) // s for t in drop)
+    return parted, gaps
+
+
+def fam_trace(params, cfg, prompts, n: int, enc):
+    """`lm_trace` at generate's chunks, with the MoE dispatches recorded."""
+    ctx = lm.ModelCtx(qc_prefill=64, gla_chunk=64)
+    with DispatchSpy() as spy:
+        t0 = time.perf_counter()
+        toks, steps = lm_trace(params, cfg, prompts, n, ctx, enc)
+        seconds = time.perf_counter() - t0
+    return toks, steps, spy.calls, seconds
+
+
+def run_fam_devices(arch, cfg, params, dev) -> dict:
+    """Phase 15 (b): fp32 compute, TF32 off, the same weights on the card
+    and on the machine's CPU (copied to the host): B_PROMPTS prompts of
+    B_LEN tokens through `lm_trace`, prefill and GIANT_STEPS - 1 decode
+    steps for the giants (at 1 layer), B_NEW greedy tokens for the rest.
+    Prefill's and the first decode step's logits within B_TOL, except on
+    rows whose MoE dispatch parted at a near-tie (`parted_rows`); the
+    greedy tokens equal, or parted at a near-tie of the logits; the CPU's
+    one-ulp move of the input embeddings beside."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on")
+    t_phase = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    n = GIANT_STEPS if arch in FAM_DEPTH else B_NEW
+    rng = np.random.default_rng(1)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, size=B_LEN)))
+               for _ in range(B_PROMPTS)]
+    enc = frames(cfg, B_PROMPTS, 1) if cfg.encoder_layers else None
+    card_toks, card_steps, card_calls, card_s = fam_trace(
+        params, cfg32, prompts, n, enc)
+    t0 = time.perf_counter()
+    host = lm_common.map_descs(lambda t: t.cpu(), params)
+    copy_s = time.perf_counter() - t0
+    cpu_toks, cpu_steps, cpu_calls, cpu_s = fam_trace(
+        host, cfg32, prompts, n, enc)
+    moved = dict(host, embed=torch.nextafter(
+        host["embed"], torch.tensor(float("inf"))))
+    ulp_steps = fam_trace(moved, cfg32, prompts, 2, enc)[1]
+    del host, moved
+    parted, gaps = parted_rows(card_calls, cpu_calls, B_PROMPTS)
+    keep = [r for r in range(B_PROMPTS) if r not in parted]
+    one_ulp = [float(np.abs(a - b).max())
+               for a, b in zip(cpu_steps[:2], ulp_steps)]
+    errs = [float(np.abs(a[keep] - b[keep]).max()) if keep else None
+            for a, b in zip(card_steps, cpu_steps)]
+    if keep and max(errs[:2]) > B_TOL:
+        raise AssertionError(f"{arch} card vs CPU: prefill/first decode "
+                             f"logits differ by {errs[:2]} > {B_TOL}")
+    parted_at = None
+    for i in range(n):
+        rows = (card_toks[:, i] != cpu_toks[:, i])
+        rows[list(parted)] = False
+        if rows.any():
+            parted_at = i
+            gap = max(top2_gap(card_steps[i])[rows].max(),
+                      top2_gap(cpu_steps[i])[rows].max())
+            if gap > B_TOL:
+                raise AssertionError(f"{arch}: greedy tokens part at step "
+                                     f"{i} without a near-tie: top-2 gap "
+                                     f"{gap}")
+            break
+    fields = {"arch": arch, "layers": cfg.n_layers, "prompts": B_PROMPTS,
+              "prompt_len": B_LEN, "steps": n, "tol": B_TOL,
+              "max_abs_err_prefill": errs[0], "max_abs_err_decode1": errs[1],
+              "max_abs_err_later_steps": errs[2:],
+              "one_ulp_embed_move_cpu": one_ulp,
+              "logit_max_abs": float(np.abs(cpu_steps[0]).max()),
+              "moe_calls": len(card_calls),
+              "moe_rows_parted": sorted(parted),
+              "moe_gaps_where_parted": gaps,
+              "moe_min_gap": (float(min(c["gap"].min() for c in card_calls))
+                              if card_calls else None),
+              "tokens_equal": parted_at is None and not parted,
+              "parted_at_step": parted_at, "card_s": card_s,
+              "host_copy_s": copy_s, "cpu_s": cpu_s,
+              "tokens": cpu_toks.tolist(),
+              "seconds": time.perf_counter() - t_phase}
+    emit("fam.card_vs_cpu", **fields)
+    return fields
+
+
+def run_fam_consistency(arch, cfg, params16, dev) -> dict:
+    """Phase 15 (c): `prefill_vs_decode` in bf16 on the card: the argmax
+    equal where the top-2 gap is past 2 BF16_TOL, the logits within
+    BF16_TOL. The MoE families are held at capacity_factor E/k, where
+    nothing drops (prefill at C_LEN - 1 and at C_LEN dispatch other token
+    sets, so drops alone could part them); beside it their drops and
+    error at the configuration's own factor, not held."""
+    t_phase = time.perf_counter()
+    enc = frames(cfg, 2, 0) if cfg.encoder_layers else None
+    held = cfg
+    if cfg.is_moe:
+        held = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    with DispatchSpy() as spy:
+        a, b = prefill_vs_decode(held, params16, dev, enc)
+    err = float(np.abs(a - b).max())
+    clear = top2_gap(a) > 2 * BF16_TOL
+    differs = a.argmax(-1) != b.argmax(-1)
+    if err > BF16_TOL or (differs & clear).any():
+        raise AssertionError(f"{arch} prefill vs decode: max |delta| {err}, "
+                             f"argmax differs at top-2 gaps "
+                             f"{top2_gap(a)[differs]}")
+    fields = {"arch": arch, "layers": cfg.n_layers, "len": C_LEN,
+              "tol": BF16_TOL, "max_abs_err": err,
+              "argmax_differs": int(differs.sum()),
+              "capacity_factor": held.capacity_factor,
+              "drops": spy.drops()}
+    if cfg.is_moe:
+        with DispatchSpy() as own:
+            a, b = prefill_vs_decode(cfg, params16, dev, enc)
+        fields.update(own_capacity_factor=cfg.capacity_factor,
+                      own_drops=own.drops(),
+                      own_max_abs_err=float(np.abs(a - b).max()),
+                      own_argmax_differs=int(
+                          (a.argmax(-1) != b.argmax(-1)).sum()))
+    fields["seconds"] = time.perf_counter() - t_phase
+    emit("fam.prefill_vs_decode", **fields)
+    return fields
+
+
+def dispatch_case(rng, gen, dev, arch: str, case: str):
+    """An integer-grid gate input for `arch`'s gate width: x [D_TOKENS, D]
+    and wg [D, E] in {-1, 0, 1} (exact fp32 logits, many exact ties);
+    `overflow` adds 3 to expert 0's gate column and takes x in {0, 1, 2}
+    (every token picks expert 0, far past its capacity). The experts'
+    weights, N(0, 1/fan-in), are drawn on the card from `gen` (the host
+    draws 1e8 normals a second) and returned on the card."""
+    cfg = dataclasses.replace(lm_configs.get_config(arch), moe_d_ff=D_FF)
+    d, e = cfg.d_model, cfg.n_experts
+    if case == "overflow":
+        x = rng.integers(0, 3, size=(D_TOKENS, d))
+    else:
+        x = rng.integers(-1, 2, size=(D_TOKENS, d))
+    wg = rng.integers(-1, 2, size=(d, e))
+    if case == "overflow":
+        wg[:, 0] += 3
+    experts = [torch.randn(shape, generator=gen, device=dev).mul_(
+        np.float32(1.0 / np.sqrt(shape[1])))
+        for shape in ((e, d, D_FF), (e, d, D_FF), (e, D_FF, d))]
+    return cfg, torch.from_numpy(x).float(), torch.from_numpy(wg).float(), \
+        experts
+
+
+def run_fam_dispatch(dev) -> dict:
+    """Phase 15 (d): `moe.dispatch` and `moe._moe_local` on the card
+    against the machine's CPU at deepseek-v2's gate width (E = 160,
+    k = 6) and grok-1's (E = 8, k = 2), D_TOKENS tokens (cap 192 and
+    1,280), forced overflow and gate ties: the chosen experts, positions,
+    slot table and reach mask bit-identical, y within D_TOL."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = []
+    for arch in ("deepseek-v2-236b", "grok-1-314b"):
+        for case in ("overflow", "ties"):
+            cfg, x, wg, experts = dispatch_case(rng, gen, dev, arch, case)
+            got = []
+            for where in (dev, torch.device("cpu")):
+                args = [t.to(where) for t in (x, wg, *experts)]
+                g = moe_mod.dispatch(args[0], args[1], cfg)
+                y, aux = moe_mod._moe_local(*args, cfg=cfg)
+                got.append(({k: g[k].cpu() for k in (
+                    "gidx", "slot_pos", "valid", "table")},
+                    y.cpu(), float(aux)))
+            (gc, yc, auxc), (gh, yh, auxh) = got
+            for name in gc:
+                if not torch.equal(gc[name], gh[name]):
+                    raise AssertionError(f"(d) {arch} {case}: {name} "
+                                         f"differs across devices")
+            err = float((yc - yh).abs().max())
+            if err > D_TOL * (1 + float(yh.abs().max())):
+                raise AssertionError(f"(d) {arch} {case}: y differs by "
+                                     f"{err}")
+            logits = x @ wg
+            top = torch.topk(logits, cfg.experts_per_token + 1).values
+            k = cfg.experts_per_token
+            load = torch.bincount(gh["gidx"].reshape(-1),
+                                  minlength=cfg.n_experts)
+            cap = gh["table"].shape[1]
+            out.append({"arch": arch, "case": case, "tokens": D_TOKENS,
+                        "d_model": cfg.d_model, "experts": cfg.n_experts,
+                        "k": k, "cap": cap,
+                        "overflowed_experts": int((load > cap).sum()),
+                        "dropped_assignments": int((~gh["valid"]).sum()),
+                        "cap_minus_1_dropped": int(
+                            (gh["table"][load > cap, -1] == -1).sum()),
+                        "tied_tokens": int((top[:, k - 1] == top[:, k])
+                                           .sum()),
+                        "y_max_abs_err": err, "aux_delta": abs(auxc - auxh),
+                        "bit_identical": ["gidx", "slot_pos", "valid",
+                                          "table"]})
+    fields = {"cases": out, "tol": D_TOL,
+              "seconds": time.perf_counter() - t_phase}
+    emit("fam.dispatch", **fields)
+    return fields
+
+
+def fam_bounds(cfg, n_params: int, b: int, s_max: int, s_enc: int,
+               mean_len: float) -> dict:
+    """The least time of a prefill over b x s_max positions and of a mean
+    decode step at mean_len positions, from the shapes: bf16 weights read
+    once (every expert: the dense dispatch reads them all; the encoder's
+    only in prefill), the caches read and written (Hymba's ring holds its
+    window), and the products each algorithm does (the decoder's weights
+    over every padded position, the encoder's and the cross K/V
+    projections over the frames, the dense [E, C, D] expert batches at
+    their capacity, attention's score and PV products unskipped over
+    every key, MLA's keys and values recomputed from c_kv each step; the
+    recurrent scans' products are left out). Returns the bounds in ms and
+    what bounds them."""
+    d, v, L = cfg.d_model, cfg.vocab, cfg.n_layers
+    kinds = set(lm.layer_kinds(cfg))
+    n_embed = v * d
+    n_enc = 0
+    if cfg.encoder_layers:
+        desc = lm.model_desc(cfg)
+        n_enc = lm_common.count_params({k: desc[k] for k in (
+            "enc_pos", "enc_layers", "enc_ln_f")})
+    n_body = n_params - 2 * n_embed - n_enc
+    n_cross_kv = 2 * d * d * L if cfg.encoder_layers else 0
+    experts = 0
+    if cfg.is_moe:
+        experts = L * 3 * cfg.n_experts * d * (cfg.moe_d_ff or cfg.d_ff)
+    dense = n_body - experts - n_cross_kv
+
+    def cached(t):            # positions an attention cache holds
+        return min(t, cfg.sliding_window) if cfg.sliding_window else t
+
+    def moe_ops(t):
+        if not cfg.is_moe:
+            return 0.0
+        cap = moe_mod.capacity(t, cfg)
+        f = cfg.moe_d_ff or cfg.d_ff
+        return 2 * 3 * cfg.n_experts * cap * d * f * L
+
+    def attn_ops(q, t):       # scores and PV, every key, per layer
+        if cfg.use_mla:
+            return 2 * b * cfg.n_heads * q * t * (
+                2 * lm_attn.MLA_NOPE + cfg.mla_rope_dim) * L
+        if kinds & {"attn", "hymba", "dec"}:
+            return 2 * 2 * b * cfg.n_heads * q * t * cfg.hd * L
+        return 0.0
+
+    def cache_row():          # bytes a position holds in the cache
+        if cfg.use_mla:
+            return 2 * L * (cfg.kv_lora_rank + cfg.mla_rope_dim)
+        if kinds & {"attn", "hymba", "dec"}:
+            return 2 * 2 * L * cfg.n_kv_heads * cfg.hd
+        return 0
+
+    toks = b * s_max
+    pre_ops = 2 * dense * toks + moe_ops(toks) + attn_ops(s_max, s_max) \
+        + 2 * n_embed * b
+    if cfg.encoder_layers:    # the encoder and the cross K/V, over frames
+        pre_ops += 2 * (n_enc + n_cross_kv) * b * s_enc \
+            + 2 * 2 * b * cfg.n_heads * s_enc * s_enc * cfg.hd \
+            * cfg.encoder_layers + 2 * 2 * b * cfg.n_heads * s_max \
+            * s_enc * cfg.hd * L
+    pre_bytes = 2 * n_params + b * cached(s_max) * cache_row()
+    dec_bytes = 2 * (n_body + n_embed) + b * cached(mean_len) \
+        * cache_row() + b * v * 4
+    if cfg.use_mla:           # k_c and v written and read once a layer
+        dec_bytes += 2 * 2 * 2 * b * mean_len * cfg.n_heads \
+            * lm_attn.MLA_NOPE * L
+    if cfg.encoder_layers:    # the cross K/V read each step
+        dec_bytes += 2 * 2 * b * s_enc * cfg.n_heads * cfg.hd * L
+    dec_ops = 2 * dense * b + moe_ops(b) + attn_ops(1, cached(mean_len)) \
+        + 2 * n_embed * b
+    if cfg.encoder_layers:
+        dec_ops += 2 * 2 * b * cfg.n_heads * s_enc * cfg.hd * L
+    if cfg.use_mla:
+        dec_ops += 2 * b * mean_len * cfg.kv_lora_rank * cfg.n_heads \
+            * (lm_attn.MLA_NOPE + lm_attn.MLA_V) * L
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / BF16_FLOPS, nbytes / HBM_BYTES_S
+        return max(t_ops, t_bytes) * 1e3, \
+            "operations" if t_ops >= t_bytes else "bytes"
+
+    pre_ms, pre_by = bound(pre_ops, pre_bytes)
+    dec_ms, dec_by = bound(dec_ops, dec_bytes)
+    out = {"prefill_bound_ms": pre_ms, "prefill_bound_by": pre_by,
+           "prefill_tflop": pre_ops / 1e12, "decode_bound_ms": dec_ms,
+           "decode_bound_by": dec_by, "decode_gb_per_step": dec_bytes / 1e9}
+    if cfg.is_moe:
+        f = cfg.moe_d_ff or cfg.d_ff
+        expert_bytes = 2 * 3 * d * f
+        routed = min(cfg.n_experts, b * cfg.experts_per_token)
+        out.update(
+            decode_expert_gb_per_step=2 * experts / 1e9,
+            routed_form_expert_gb_per_layer=routed * expert_bytes / 1e9,
+            routed_form_decode_bound_ms=(dec_bytes - 2 * experts
+                                         + L * routed * expert_bytes)
+            / HBM_BYTES_S * 1e3,
+            routed_form_note="a step that read only the routed experts' "
+                             "weights: not the work the code does")
+    return out
+
+
+def run_fam_serving(arch, cfg, n_params, params16, dev) -> dict:
+    """Phase 15 (f): a serving shape in bf16 with ModelCtx()'s defaults,
+    run the way `generate` runs it (padded prefill, then greedy decode):
+    F_BATCH prompts of F_LEN tokens (whisper: W_LEN, over its frames) and
+    F_NEW new ones. The cache holds prompt + new positions, rounded up
+    to 64 and to the GLA chunk where a recurrent layer scans. Prefill ms
+    and decode ms a step (medians of F_PASSES passes after a warm-up),
+    tokens a second, peak device memory, every logit finite, the bounds
+    from the shapes; for deepseek-v2 one profiled pass's idle share."""
+    t_phase = time.perf_counter()
+    ctx = lm.ModelCtx()
+    length = W_LEN if cfg.encoder_layers else F_LEN
+    step = 64
+    if set(lm.layer_kinds(cfg)) & {"mlstm", "hymba"}:
+        step = int(np.lcm(64, ctx.gla_chunk))
+    s_max = -(-(length + F_NEW) // step) * step
+    rng = np.random.default_rng(2)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, size=length)))
+               for _ in range(F_BATCH)]
+    batch = {"tokens": serve.pad_prompts(prompts, s_max)[0].to(dev)}
+    if cfg.encoder_layers:
+        batch["enc_inputs"] = frames(cfg, F_BATCH, 2).to(dev)
+    finite = []
+
+    def one_pass():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.forward_prefill(params16, batch, cfg, ctx,
+                                           prompt_len=length)
+        ok = [torch.isfinite(logits).all()]
+        nxt = torch.argmax(logits[:, -1], dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(F_NEW - 1):
+            logits, cache = lm.forward_decode(params16, cache, nxt[:, None],
+                                              length + i, cfg, ctx)
+            ok.append(torch.isfinite(logits).all())
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+        torch.cuda.synchronize()
+        finite.append(bool(torch.stack(ok).all()))
+        return t1 - t0, (time.perf_counter() - t1) / (F_NEW - 1)
+
+    torch.cuda.reset_peak_memory_stats()
+    first = one_pass()
+    passes = [one_pass() for _ in range(F_PASSES)]
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    if not all(finite):
+        raise AssertionError(f"{arch}: non-finite logits at gla_chunk "
+                             f"{ctx.gla_chunk}")
+    prefill_s = float(np.median([p[0] for p in passes]))
+    step_s = float(np.median([p[1] for p in passes]))
+    fields = {"arch": arch, "layers": cfg.n_layers, "batch": F_BATCH,
+              "prompt_len": length, "new": F_NEW, "s_max": s_max,
+              "qc_prefill": ctx.qc_prefill, "gla_chunk": ctx.gla_chunk,
+              "passes": F_PASSES, "prefill_ms": prefill_s * 1e3,
+              "decode_ms_per_step": step_s * 1e3,
+              "first_pass_ms": [first[0] * 1e3, first[1] * 1e3],
+              "prefill_ms_passes": [p[0] * 1e3 for p in passes],
+              "decode_ms_per_step_passes": [p[1] * 1e3 for p in passes],
+              "tokens_per_s": F_BATCH * F_NEW / (prefill_s
+                                                 + (F_NEW - 1) * step_s),
+              "peak_device_mb": peak, "logits_finite": True}
+    if arch == "deepseek-v2-236b":
+        t_prof = time.perf_counter()
+        prof = profile_phase("fam_serving_" + arch, one_pass,
+                             host_ops=False)
+        fields.update(device_idle_share=prof["device_idle_share"],
+                      profile_s=time.perf_counter() - t_prof)
+    fields.update(fam_bounds(cfg, n_params, F_BATCH, s_max,
+                             cfg.encoder_seq, length + (F_NEW - 2) / 2 + 1))
+    fields["seconds"] = time.perf_counter() - t_phase
+    emit("fam.serving", **fields)
+    return fields
+
+
+def run_fam_model(arch, dev):
+    """Phase 15 (a): the family's configuration at its depth, its count
+    held to FAM_PARAMS, weights drawn from seed 0 (the giants' on the
+    card, fp32; the rest through `init_params`). Returns (config, count,
+    fp32 parameters on the card, the line's fields)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, n = fam_config(arch)
+    desc = lm.model_desc(cfg)
+    if arch in FAM_DEPTH:
+        params = draw_on_card(desc, 0, dev)
+    else:
+        params = lm_common.init_params(desc, seed=0, device=dev)
+    torch.cuda.synchronize()
+    fields = {"arch": arch, "layers": cfg.n_layers,
+              "published_layers": lm_configs.get_config(arch).n_layers,
+              "cut": ("depth only, every width published" if arch in
+                      FAM_DEPTH else "none"),
+              "config": dataclasses.asdict(cfg), "params": n,
+              "bf16_bytes": 2 * n, "fp32_bytes": 4 * n,
+              "drawn_on": "card" if arch in FAM_DEPTH else "host",
+              "peak_device_mb": torch.cuda.max_memory_allocated() / 1e6,
+              "seconds": time.perf_counter() - t0}
+    emit("fam.model", **fields)
+    return cfg, n, params, fields
+
+
+def run_families(fx, router, dev) -> dict:
+    """Phase 15: (d) once, then for each family (a), (b), (c) and (f), and
+    (e) on deepseek-v2; each family freed before the next. Returns the
+    phase's summary with (e)'s launch counts under "launches"."""
+    summary = {"dispatch": run_fam_dispatch(dev)["cases"]}
+    launches = None
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        cfg, n, params, model = run_fam_model(arch, dev)
+        if arch in FAM_DEPTH:
+            cfg1, _ = fam_config(arch, 1)
+            devices = run_fam_devices(arch, cfg1, first_layers(params, 1),
+                                      dev)
+        else:
+            devices = run_fam_devices(arch, cfg, params, dev)
+        params16 = lm_common.cast_floats(params, torch.bfloat16)
+        del params
+        torch.cuda.empty_cache()
+        consistency = run_fam_consistency(arch, cfg, params16, dev)
+        if arch == "deepseek-v2-236b":
+            nodrop = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+            _, launches = run_rag_path(fx, router, cfg, params16, dev,
+                                       tag="fam.rag_path",
+                                       check_cfg=nodrop)
+        serving = run_fam_serving(arch, cfg, n, params16, dev)
+        del params16
+        torch.cuda.empty_cache()
+        summary[arch] = {
+            "layers": cfg.n_layers, "params": n,
+            "peak_device_mb": max(model["peak_device_mb"],
+                                  serving["peak_device_mb"]),
+            "card_vs_cpu": {k: devices[k] for k in (
+                "max_abs_err_prefill", "max_abs_err_decode1",
+                "moe_rows_parted", "tokens_equal")},
+            "prefill_vs_decode_err": consistency["max_abs_err"],
+            "serving": {k: serving[k] for k in (
+                "prefill_ms", "decode_ms_per_step", "tokens_per_s",
+                "prefill_bound_ms", "decode_bound_ms")},
+            "seconds": time.perf_counter() - t0}
+        emit("fam.done", arch=arch, **summary[arch])
+    summary["launches"] = launches
+    return summary
 
 
 def profile_phase(name: str, fn, host_ops: bool = True) -> dict:
@@ -4832,6 +5472,17 @@ def main() -> int:
     launches_rag = rag.pop("launches")
     emit("rag", seconds=time.perf_counter() - t0, launches=launches_rag,
          **rag)
+    # phase 15, every other family's serving forward at full width; the
+    # RAG path with deepseek-v2 as its LM counted as phase 14's is
+    t0 = time.perf_counter()
+    fam = run_families(fx, svc.router, dev)
+    launches_fam = fam.pop("launches")
+    emit("families", seconds=time.perf_counter() - t0,
+         launches=launches_fam, **fam)
+    for name in ("masked_topk", "selectivity"):
+        if launches_fam[name] == 0:
+            raise AssertionError(f"the RAG path with deepseek-v2 never "
+                                 f"launched {name}")
     serving_total = {name: sum(c[name] for c in launches_serving.values())
                      for name in KERNEL_WRAPPERS}
     launches_by_path = {"main": launches, "sharded": launches_sharded,
@@ -4839,7 +5490,8 @@ def main() -> int:
                         "live": launches_live, "live_staged": launches_staged,
                         "anyk": launches_anyk, "sharded_live": launches_sl,
                         "store": launches_store, "serving": serving_total,
-                        "train": launches_train, "rag": launches_rag}
+                        "train": launches_train, "rag": launches_rag,
+                        "rag_deepseek": launches_fam}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []

@@ -9,7 +9,9 @@ as it advances — no recomputation.
         [--max-new 16] [--device cuda]
 
 runs on the card, at the architecture's full width unless `--smoke`
-asks for its reduced config, with random weights from seed 0.
+asks for its reduced config, with random weights from seed 0 (any of
+the ten configurations; the encoder-decoder gets 0.05·N(0, 1) frame
+embeddings, as the JAX package's launcher gives it).
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ def generate(params, cfg, prompts: list[list[int]], *, max_new: int,
              ctx: lm.ModelCtx | None = None, enc_inputs=None,
              greedy: bool = True, seed: int = 0):
     """Greedy/sampled generation on the parameters' device. Returns
-    [B, max_new] int32 tokens (numpy).
+    [B, max_new] int32 tokens (numpy). `enc_inputs` [B, S_enc, D] (a
+    tensor or an array) are the encoder-decoder's frame embeddings.
 
     All prompts must share one length (as in the JAX package, whose
     recurrent and ring caches mask against one prompt_len). The cache
@@ -54,10 +57,6 @@ def generate(params, cfg, prompts: list[list[int]], *, max_new: int,
     `torch.Generator(seed)`, where the JAX package uses
     `jax.random.categorical`: the same distribution, other draws.
     """
-    if enc_inputs is not None or cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder inputs (the encoder-decoder family) are "
-            f"not ported yet (ROADMAP.md queue 1 item 2b)")
     ctx = ctx or lm.ModelCtx(qc_prefill=64, gla_chunk=64)
     lens_set = {len(p) for p in prompts}
     if len(lens_set) != 1:
@@ -69,9 +68,12 @@ def generate(params, cfg, prompts: list[list[int]], *, max_new: int,
     s_max = ((s_max + 63) // 64) * 64       # keep chunked shapes divisible
     dev = params["embed"].device
     tokens, _lens = pad_prompts(prompts, s_max)
+    batch = {"tokens": tokens.to(dev)}
+    if enc_inputs is not None:
+        batch["enc_inputs"] = torch.as_tensor(enc_inputs).to(dev)
     params = common.cast_floats(params, getattr(torch, cfg.compute_dtype))
-    logits, cache = lm.forward_prefill(params, {"tokens": tokens.to(dev)},
-                                       cfg, ctx, prompt_len=max_len)
+    logits, cache = lm.forward_prefill(params, batch, cfg, ctx,
+                                       prompt_len=max_len)
     gen = None if greedy else torch.Generator().manual_seed(int(seed))
     out = []
     for i in range(max_new):
@@ -105,7 +107,12 @@ def main():
     prompts = [list(rng.integers(1, min(cfg.vocab, 200),
                                  size=args.prompt_len))
                for _ in range(args.batch)]
-    toks = generate(params, cfg, prompts, max_new=args.max_new)
+    enc = None
+    if cfg.encoder_layers:                  # stand-in frame embeddings
+        enc = torch.from_numpy(0.05 * rng.normal(
+            size=(args.batch, cfg.encoder_seq, cfg.d_model))).float()
+    toks = generate(params, cfg, prompts, max_new=args.max_new,
+                    enc_inputs=enc)
     print("generated:", toks[:, :8], "... shape", toks.shape)
 
 

@@ -80,12 +80,20 @@ def _torch_dtype(dt) -> torch.dtype:
 
 # ---- derivations -----------------------------------------------------------
 
+def init_std(d: ParamDesc) -> float:
+    """A drawn leaf's std: `scale`, else 1/sqrt(fan-in) as the JAX
+    package computes it (a stacked leaf's fan-in counts its layer dim)."""
+    if d.scale is not None:
+        return d.scale
+    return 1.0 / math.sqrt(d.shape[0] if len(d.shape) <= 2
+                           else np.prod(d.shape[:-1]))
+
+
 def init_params(tree, *, seed: int, device="cuda", dtype=None):
     """Initialised parameters for a descriptor tree, on `device`.
 
     Leaves are drawn in `jax.tree.flatten`'s order from one CPU
-    `torch.Generator(seed)` (fp32 normals times the leaf's std: `scale`,
-    else 1/sqrt(fan-in) as the JAX package computes it), then cast to
+    `torch.Generator(seed)` (fp32 normals times `init_std`), then cast to
     `dtype` (default: the leaf's) and moved to `device`, so the card and
     the CPU get identical weights from one seed. `one` and `zero` leaves
     draw nothing. The JAX package draws with `jax.random`, which torch
@@ -102,10 +110,8 @@ def init_params(tree, *, seed: int, device="cuda", dtype=None):
         elif d.zero:
             t = torch.zeros(d.shape, dtype=dt)
         else:
-            std = d.scale if d.scale is not None else 1.0 / math.sqrt(
-                d.shape[0] if len(d.shape) <= 2 else np.prod(d.shape[:-1]))
             t = torch.randn(d.shape, generator=gen, dtype=torch.float32)
-            t = t.mul_(np.float32(std)).to(dt)
+            t = t.mul_(np.float32(init_std(d))).to(dt)
         out.append(t.to(dev))
     return _unflatten(tree, iter(out))
 

@@ -75,8 +75,15 @@ def test_port_imports_with_jax_and_reference_blocked():
         "map_descs, count_params, init_params, params_from_numpy, "
         "cast_floats, rms_norm, layer_norm, rope_freqs, apply_rope)",
         "from repro_torch.models.attention import (NEG_INF, pick_qc, "
-        "gqa_desc, gqa_train, gqa_prefill, gqa_decode)",
-        "from repro_torch.models.moe import mlp_desc, mlp_apply",
+        "gqa_desc, gqa_train, gqa_prefill, gqa_decode, MLA_NOPE, MLA_V, "
+        "mla_desc, mla_prefill, mla_decode, cross_desc, cross_kv, "
+        "cross_attend)",
+        "from repro_torch.models.moe import (mlp_desc, mlp_apply, "
+        "moe_desc, moe_apply, dispatch, capacity)",
+        "from repro_torch.models.ssm import (gla_chunk_scan, "
+        "gla_decode_step, mlstm_desc, mlstm_decode, mlstm_state_shape, "
+        "slstm_desc, slstm_train, slstm_decode, slstm_init_state, "
+        "mamba_desc, mamba_decode, mamba_state_shape)",
         "from repro_torch.models.lm import (ModelCtx, layer_kinds, "
         "layer_desc, model_desc, cache_desc, forward_prefill, "
         "forward_decode)",
