@@ -255,18 +255,19 @@ not 0):
              activity alone), and the bounds from the shapes.
 15. families — every other LM family's serving forward at full width,
              one family at a time, freed before the next: deepseek-v2
-             (MoE + MLA) cut to 2 layers and grok-1 (MoE) to 1, their
-             weights drawn on the card from a seeded generator with
-             `init_params`'s per-leaf std; xlstm-125m, hymba-1.5b and
-             whisper-medium whole through `init_params` (`fam.model`:
-             each count held to the reference's). (d) first:
+             (MoE + MLA) cut to 2 layers and grok-1 (MoE) to 1,
+             xlstm-125m, hymba-1.5b and whisper-medium whole, every
+             family's weights drawn on the card from a seeded generator
+             with `init_params`'s per-leaf std (`fam.model`: each count
+             held to the reference's). (d) first:
              `moe.dispatch` and `_moe_local` on the card against the
              machine's CPU at deepseek-v2's gate width (E = 160, k = 6)
              and grok-1's (E = 8, k = 2), 4,096 integer-grid tokens,
              forced overflow and gate ties: experts, positions, slot
              table and reach mask bit-identical, y within fp32 order.
              Then per family: (b) fp32, TF32 off, the same weights on
-             the card and the CPU (the giants at 1 layer): 2 prompts of
+             the card and the CPU (the giants at 1 layer, whisper at
+             FAM_CHECK_DEPTH's 4 encoder and 4 decoder layers): 2 prompts of
              64 tokens, prefill and 2 decode steps (8 greedy tokens for
              the small three), logits within B_TOL except rows whose
              MoE dispatch parted at a near-tie of the gate (each MoE
@@ -282,6 +283,35 @@ not 0):
              14 (d)'s RAG path on phase 5's handle and router, the
              launch counts set to 0 just before its queues and read
              just after (`launches_by_path.rag_deepseek`).
+16. training — LM training on the card (`launch.train.train_loop`, each
+             step in deterministic mode): (a) qwen2-0.5b whole at full
+             width in its own config (fp32 parameters, remat,
+             `default_opt_cfg`'s AdamW), `TokenStream(vocab, 4096, 8,
+             seed=1)`, accumulation 2 x 4 sequences (32,768 tokens a
+             step), 6 steps with a `CheckpointManager` saving every 3:
+             every loss finite and the last below the first, the median
+             step of steps 3-6, tokens a second, peak memory, the bound;
+             (b) a fresh `train_loop` resumed from step 3 to 6: its losses,
+             parameters and moments bit-identical to the uninterrupted
+             run's; a third run (the full width cut to 2 layers, 512
+             tokens) gets SIGUSR1 during step 2, checkpoints at 2 and
+             stops; then one step in deterministic mode under the profiler
+             (the device's activity alone) and one in the default mode,
+             timed; (c) one step of qwen2-0.5b cut to 2 layers, fp32
+             compute, TF32 off, 2 x 512 tokens, on the card and on the
+             machine's CPU from the same weights: loss and grad norm within
+             1e-5 and 1e-4 relative, the largest parameter difference, and
+             with 8-bit moments the count of int8 moments that part (each
+             within 1e-3 of a rounding tie); (d) one step of deepseek-v2
+             (1 layer; bf16 parameters, 8-bit moments), xlstm-125m,
+             hymba-1.5b and whisper-medium (448 decoder positions over
+             1,500 frames) at full width, 2,048 tokens, accumulation 2 x
+             microbatch_seqs, weights drawn on the card: a finite loss,
+             every leaf changed, the step time and peak memory; (e) (a)'s
+             step-6 checkpoint restored through `CheckpointManager`, cast
+             to bf16, serving phase 14 (d)'s RAG path on phase 5's handle
+             and router, the launch counts set to 0 just before its queues
+             and read just after (`launches_by_path.rag_trained`).
 
 Every line carries "t", the seconds since the script started. The last
 three lines are nvidia-smi's name and power limit, the kernels'
@@ -298,10 +328,11 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
-import re
 import tempfile
 import threading
 import time
@@ -310,6 +341,9 @@ from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# phase 16 trains in deterministic mode, which needs cuBLAS's workspace
+# fixed before cuBLAS first starts in this process
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -361,11 +395,16 @@ from repro_torch.kernels import bitmap_filter as bf  # noqa: E402
 from repro_torch.kernels import masked_topk as mk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.data.tokens import TokenStream  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import common as lm_common  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.optim import adam as adam_mod  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): fp32
 # outside the tensor cores, and HBM3. 32-bit integer operations (add,
@@ -4409,6 +4448,10 @@ FAM_PARAMS = {("deepseek-v2-236b", 2): 9_153_243_136,
 # k-th and k+1-th logits closer than this are a near-tie (the devices'
 # fp32 gate logits part by about 1e-5 at these widths).
 GIANT_STEPS = 3
+# (b) whisper at 4 of its 24 encoder and decoder layers: its CPU side (the
+# encoder over 1,500 frames, three traces) took 37-46 s of the phase at
+# full depth; cut when phase 16 was added, to keep the script near 900 s.
+FAM_CHECK_DEPTH = {"whisper-medium": 4}
 GATE_TIE = 1e-3
 # (d) the dispatch at each giant's gate width: D_TOKENS tokens on an
 # integer grid (exact fp32 gate logits on both devices), experts of
@@ -4437,26 +4480,29 @@ def fam_config(arch: str, layers: int | None = None):
     return cfg, n
 
 
-def draw_on_card(desc, seed: int, dev):
+def draw_on_card(desc, seed: int, dev, dtype=torch.float32):
     """`init_params`'s leaves (ones, zeros, N(0, init_std^2)) drawn in
-    fp32 on the card from a seeded `torch.Generator(device=...)`: the
-    host draws 1e8 normals a second, the giants need 1e10."""
+    fp32 on the card from a seeded `torch.Generator(device=...)`, each
+    cast to `dtype` as it is drawn: the host draws 1e8 normals a second,
+    the giants need 1e10."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def one(d):
         if d.one:
-            return torch.ones(d.shape, device=dev)
+            return torch.ones(d.shape, device=dev, dtype=dtype)
         if d.zero:
-            return torch.zeros(d.shape, device=dev)
+            return torch.zeros(d.shape, device=dev, dtype=dtype)
         return torch.randn(d.shape, generator=gen, device=dev).mul_(
-            np.float32(lm_common.init_std(d)))
+            np.float32(lm_common.init_std(d))).to(dtype)
     return lm_common.map_descs(one, desc)
 
 
 def first_layers(params, n: int):
-    """The parameters of a stacked model's first n layers (views)."""
-    return dict(params, layers=lm_common.map_descs(lambda t: t[:n],
-                                                   params["layers"]))
+    """The parameters of a stacked model's first n layers, the
+    encoder's too (views)."""
+    cut = {k: lm_common.map_descs(lambda t: t[:n], params[k])
+           for k in ("layers", "enc_layers") if k in params}
+    return dict(params, **cut)
 
 
 def frames(cfg, b: int, seed: int):
@@ -4905,18 +4951,15 @@ def run_fam_serving(arch, cfg, n_params, params16, dev) -> dict:
 
 def run_fam_model(arch, dev):
     """Phase 15 (a): the family's configuration at its depth, its count
-    held to FAM_PARAMS, weights drawn from seed 0 (the giants' on the
-    card, fp32; the rest through `init_params`). Returns (config, count,
-    fp32 parameters on the card, the line's fields)."""
+    held to FAM_PARAMS, fp32 weights drawn on the card from seed 0
+    (`draw_on_card`; the host's draws of hymba's and whisper's took 18 s
+    of the phase). Returns (config, count, fp32 parameters on the card,
+    the line's fields)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, n = fam_config(arch)
-    desc = lm.model_desc(cfg)
-    if arch in FAM_DEPTH:
-        params = draw_on_card(desc, 0, dev)
-    else:
-        params = lm_common.init_params(desc, seed=0, device=dev)
+    params = draw_on_card(lm.model_desc(cfg), 0, dev)
     torch.cuda.synchronize()
     fields = {"arch": arch, "layers": cfg.n_layers,
               "published_layers": lm_configs.get_config(arch).n_layers,
@@ -4924,7 +4967,7 @@ def run_fam_model(arch, dev):
                       FAM_DEPTH else "none"),
               "config": dataclasses.asdict(cfg), "params": n,
               "bf16_bytes": 2 * n, "fp32_bytes": 4 * n,
-              "drawn_on": "card" if arch in FAM_DEPTH else "host",
+              "drawn_on": "card",
               "peak_device_mb": torch.cuda.max_memory_allocated() / 1e6,
               "seconds": time.perf_counter() - t0}
     emit("fam.model", **fields)
@@ -4944,6 +4987,11 @@ def run_families(fx, router, dev) -> dict:
             cfg1, _ = fam_config(arch, 1)
             devices = run_fam_devices(arch, cfg1, first_layers(params, 1),
                                       dev)
+        elif arch in FAM_CHECK_DEPTH:
+            k = FAM_CHECK_DEPTH[arch]
+            devices = run_fam_devices(
+                arch, dataclasses.replace(cfg, n_layers=k, encoder_layers=k),
+                first_layers(params, k), dev)
         else:
             devices = run_fam_devices(arch, cfg, params, dev)
         params16 = lm_common.cast_floats(params, torch.bfloat16)
@@ -4976,6 +5024,447 @@ def run_families(fx, router, dev) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: LM training on the card
+# ---------------------------------------------------------------------------
+
+# (a) qwen2-0.5b whole at its full width and its own config (fp32
+# parameters, remat, `default_opt_cfg`): train_4k's sequence, a global
+# batch of L_ACCUM x microbatch_seqs 4 = 8 (32,768 tokens a step), L_STEPS
+# steps through `train_loop` with checkpoints every L_SAVE steps. (b) a
+# fresh `train_loop` resumes from step L_SAVE to L_STEPS; a third run
+# (the full width cut to LC_LAYERS layers, L_SIGNAL_SEQ tokens: its
+# weights drawn and its checkpoint written in half the time) gets
+# SIGUSR1 during step L_SIGNAL_STEP.
+TRAIN_LM = "qwen2-0.5b"
+L_SEQ, L_BATCH, L_ACCUM, L_STEPS, L_SAVE = 4096, 8, 2, 6, 3
+L_SIGNAL_SEQ, L_SIGNAL_STEP = 512, 2
+# (c) one train step on the card and on the machine's CPU: qwen2-0.5b at
+# full width cut to LC_LAYERS layers, fp32 compute, TF32 off, a batch of
+# LC_BATCH x LC_SEQ tokens; the loss within LC_LOSS_RTOL and the grad
+# norm within LC_GNORM_RTOL (relative); an 8-bit moment may part only
+# within LC_TIE of a half-integer of its block's scale (a rounding tie).
+LC_LAYERS, LC_BATCH, LC_SEQ = 2, 2, 512
+LC_LOSS_RTOL, LC_GNORM_RTOL, LC_TIE = 1e-5, 1e-4, 1e-3
+# (d) one train step of each other family at its published width
+# (deepseek-v2 cut to 1 layer, the rest whole): D_TRAIN_SEQ tokens
+# (whisper's decoder its 448 positions over 1,500 frames), a global batch
+# of 2 x microbatch_seqs, accumulation 2; weights drawn on the card.
+TRAIN_FAMS = ("deepseek-v2-236b", "xlstm-125m", "hymba-1.5b",
+              "whisper-medium")
+TRAIN_DEPTH = {"deepseek-v2-236b": 1}
+D_TRAIN_SEQ, W_TRAIN_SEQ, D_ACCUM = 2048, 448, 2
+
+
+def train_batch(cfg, b: int, seq: int, step: int, dev):
+    """`train_loop`'s batch of step `step` (seed 0) on `dev`."""
+    return train_mod.step_batch(cfg, TokenStream(cfg.vocab, seq, b, seed=1),
+                                0, step, dev)
+
+
+def train_bounds(cfg, n_params: int, b: int, seq: int,
+                 s_enc: int = 0) -> dict:
+    """The least time of one train step (forward, remat's second forward,
+    backward, AdamW) at the card's dense bf16 peak and its memory rate.
+    Operations: 2 a token for each matmul parameter (every parameter but
+    the embedding table's gather) forward and 4 backward, 2 more for the
+    layers' recomputed forward; attention's score and value products
+    over every key of each query chunk (the chunks are not skipped),
+    forward, recomputed and twice backward. Bytes: the parameters and the
+    fp32 moments read and written once, the gradients written and read
+    once; activations not counted."""
+    n_embed = cfg.vocab * cfg.d_model
+    n_matmul = n_params - n_embed
+    n_layers = n_params - 2 * n_embed
+    toks = b * seq
+    dense = toks * (6 * n_matmul + (2 * n_layers if cfg.remat else 0))
+    heads = cfg.n_heads
+    passes = 4 if cfg.remat else 3
+    if cfg.use_mla:
+        per_tok = 2 * seq * heads * (2 * lm_attn.MLA_NOPE + cfg.mla_rope_dim)
+    elif cfg.family == "ssm":
+        per_tok = 0          # the GLA scan and the sLSTM loop: no attention
+    else:
+        per_tok = 2 * 2 * seq * heads * cfg.hd
+    attn = toks * per_tok * cfg.n_layers * passes
+    if cfg.encoder_layers:   # the encoder's own, and the decoder's cross
+        enc = b * s_enc * 2 * 2 * s_enc * heads * cfg.hd * cfg.encoder_layers
+        cross = toks * 2 * 2 * s_enc * heads * cfg.hd * cfg.n_layers
+        attn += (enc + cross) * passes
+    ops = dense + attn
+    p_bytes = 2 if cfg.param_dtype == "bfloat16" else 4
+    m_bytes = 2 * (1 if cfg.opt_compress else 4)
+    nbytes = n_params * (2 * p_bytes + 2 * m_bytes + 2 * 4)
+    ops_s, bytes_s = ops / BF16_FLOPS, nbytes / HBM_BYTES_S
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "tflop": ops / 1e12, "attention_tflop": attn / 1e12,
+            "gb": nbytes / 1e9}
+
+
+def timed_step(step_fn, params, opt, batch, det: bool, dev) -> tuple:
+    """One train step, in deterministic mode or not, timed on the host
+    clock between `torch.cuda.synchronize()` calls; (seconds, metrics)."""
+    mode = train_mod.deterministic(dev) if det else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mode:
+        _, _, met = step_fn(params, opt, batch)
+    loss = float(met["loss"])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, {"loss": loss,
+                                      "grad_norm": float(met["grad_norm"])}
+
+
+def same_tree_bits(a, b) -> bool:
+    la, lb_ = lm_common.tree_leaves(a), lm_common.tree_leaves(b)
+    return len(la) == len(lb_) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb_))
+
+
+class SignalAtStep(TokenStream):
+    """A token stream that sends this process SIGUSR1 when the batch of
+    step `L_SIGNAL_STEP` is drawn (during that step)."""
+
+    def batch(self, step):
+        if step == L_SIGNAL_STEP - 1:
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return super().batch(step)
+
+
+def run_train_lm(dev, root: str) -> dict:
+    """Phase 16 (a) and (b). Returns the line's fields; the step-6
+    checkpoint stays in `root`/a for (e)."""
+    t_phase = time.perf_counter()
+    cfg = lm_configs.get_config(TRAIN_LM)
+    if cfg.param_dtype != "float32" or not cfg.remat or cfg.opt_compress \
+            or L_BATCH != L_ACCUM * cfg.microbatch_seqs:
+        raise AssertionError(f"{TRAIN_LM}: not its own training config")
+    n = lm_common.count_params(lm.model_desc(cfg))
+    opt_cfg = steps_mod.default_opt_cfg(cfg)
+    kw = dict(global_batch=L_BATCH, seq_len=L_SEQ, accum=L_ACCUM,
+              save_every=L_SAVE, lr=opt_cfg.lr, seed=0, verbose=False,
+              device=dev)
+    dirs = {k: os.path.join(root, k) for k in ("a", "b", "c")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, hist = train_mod.train_loop(cfg, steps=L_STEPS,
+                                             ckpt_dir=dirs["a"], **kw)
+    run_a_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{TRAIN_LM} training: losses {losses}")
+    step_s = float(np.median([h["step_time_s"] for h in hist[2:]]))
+    manager = CheckpointManager(dirs["a"])
+    if manager.steps() != [L_SAVE, L_STEPS]:
+        raise AssertionError(f"checkpoints {manager.steps()}")
+    bounds = train_bounds(cfg, n, L_BATCH, L_SEQ)
+    fields = {"arch": TRAIN_LM, "params": n, "steps": L_STEPS,
+              "global_batch": L_BATCH, "accum": L_ACCUM, "seq": L_SEQ,
+              "tokens_per_step": L_BATCH * L_SEQ,
+              "opt": dataclasses.asdict(opt_cfg), "losses": losses,
+              "step_s": [h["step_time_s"] for h in hist],
+              "step_ms_median_3_6": step_s * 1e3,
+              "tokens_per_s": L_BATCH * L_SEQ / step_s,
+              "peak_device_mb": peak, "run_s": run_a_s, **bounds}
+    emit("train_lm.run", **fields)
+
+    # (b) a fresh train_loop resumes from step L_SAVE's checkpoint
+    os.makedirs(dirs["b"])
+    name = os.path.basename(manager._step_dir(L_SAVE))
+    os.rename(os.path.join(dirs["a"], name), os.path.join(dirs["b"], name))
+    t0 = time.perf_counter()
+    p_b, o_b, hist_b = train_mod.train_loop(cfg, steps=L_STEPS,
+                                            ckpt_dir=dirs["b"], **kw)
+    resume_s = time.perf_counter() - t0
+    if [h["step"] for h in hist_b] != list(range(L_SAVE + 1, L_STEPS + 1)):
+        raise AssertionError(f"resumed steps {[h['step'] for h in hist_b]}")
+    if [h["loss"] for h in hist_b] != losses[L_SAVE:]:
+        raise AssertionError(f"resumed losses {[h['loss'] for h in hist_b]} "
+                             f"!= {losses[L_SAVE:]}")
+    if not same_tree_bits((params, opt["mu"], opt["nu"]),
+                          (p_b, o_b["mu"], o_b["nu"])) or \
+            not int(o_b["step"]) == int(opt["step"]) == L_STEPS:
+        raise AssertionError("the resumed run's parameters or moments "
+                             "differ from the uninterrupted run's")
+    del p_b, o_b
+    torch.cuda.empty_cache()
+    # a third run, preempted by SIGUSR1 during step L_SIGNAL_STEP
+    before = signal.getsignal(signal.SIGUSR1)
+    train_mod.TokenStream = SignalAtStep
+    try:
+        t0 = time.perf_counter()
+        _, _, hist_c = train_mod.train_loop(
+            dataclasses.replace(cfg, n_layers=LC_LAYERS), steps=L_STEPS,
+            ckpt_dir=dirs["c"], **dict(kw, seq_len=L_SIGNAL_SEQ))
+        signal_s = time.perf_counter() - t0
+    finally:
+        train_mod.TokenStream = TokenStream
+    if [h["step"] for h in hist_c] != list(range(1, L_SIGNAL_STEP + 1)) \
+            or CheckpointManager(dirs["c"]).steps() != [L_SIGNAL_STEP] \
+            or signal.getsignal(signal.SIGUSR1) != before:
+        raise AssertionError(f"preempted run: steps {hist_c}, checkpoints "
+                             f"{CheckpointManager(dirs['c']).steps()}")
+    shutil.rmtree(dirs["c"])
+    emit("train_lm.resume", resumed_from=L_SAVE,
+         resumed_losses=[h["loss"] for h in hist_b], bitwise=True,
+         resume_run_s=resume_s, preempted_at=L_SIGNAL_STEP,
+         preempted_checkpoints=[L_SIGNAL_STEP], signal_run_s=signal_s,
+         signal_layers=LC_LAYERS, signal_seq=L_SIGNAL_SEQ)
+
+    # two more steps of (a)'s state: one in deterministic mode under the
+    # profiler (the device's activity alone; its wall time is the mode's
+    # step time), one in the default mode, timed
+    step_fn = steps_mod.make_train_step(cfg, train_mod.model_ctx(L_SEQ),
+                                        accum=L_ACCUM, opt_cfg=opt_cfg)
+    batch = train_batch(cfg, L_BATCH, L_SEQ, L_STEPS, dev)
+    out = {}
+    prof = profile_phase("train_lm_step", lambda: out.update(
+        det=timed_step(step_fn, params, opt, batch, True, dev)),
+        host_ops=False)
+    det_s, det = out["det"]
+    free_s, free = timed_step(step_fn, params, opt, batch, False, dev)
+    for m in (det, free):
+        if not np.isfinite(m["loss"]):
+            raise AssertionError(f"non-finite loss {m}")
+    del params, opt
+    torch.cuda.empty_cache()
+    fields.update(device_idle_share=prof["device_idle_share"],
+                  deterministic_step_ms=det_s * 1e3,
+                  nondeterministic_step_ms=free_s * 1e3,
+                  resume_run_s=resume_s, signal_run_s=signal_s,
+                  seconds=time.perf_counter() - t_phase)
+    emit("train_lm.modes", deterministic_step_ms=det_s * 1e3,
+         nondeterministic_step_ms=free_s * 1e3,
+         device_idle_share=prof["device_idle_share"],
+         seconds=time.perf_counter() - t_phase)
+    return fields
+
+
+def moment_entries(run, part: str) -> list:
+    """A run's `part` moments ("mu" or "nu") in the parameters' order."""
+    return adam_mod.flatten_up_to(run["params"], run["opt"][part])
+
+
+def parted_moments(plain, card, cpu, block: int) -> tuple:
+    """The 8-bit moments of the card's and the CPU's compressed steps,
+    compared: (count, parted count, the largest distance of a parted
+    moment's value from a rounding tie, in units of its block's scale).
+    A moment's value is the CPU's plain step's fp32 moment (the
+    compressed step quantizes the same value, both starting from zero
+    moments), over the CPU's compressed scale."""
+    total, parted, worst = 0, 0, 0.0
+    for part in ("mu", "nu"):
+        for x, mc, mh in zip(moment_entries(plain, part),
+                             moment_entries(card, part),
+                             moment_entries(cpu, part)):
+            total += x.numel()
+            diff = mc["q"].cpu() != mh["q"]
+            if not diff.any():
+                continue
+            n = x.shape[-1]
+            blk = adam_mod._block_of(n, block)
+            r = (x.reshape(x.shape[:-1] + (n // blk, blk))
+                 / mh["s"][..., None]).reshape(x.shape)[diff].abs()
+            worst = max(worst, float((r - r.floor() - 0.5).abs().max()))
+            parted += int(diff.sum())
+    return total, parted, worst
+
+
+def run_train_devices(dev) -> dict:
+    """Phase 16 (c): one train step of qwen2-0.5b at full width cut to
+    LC_LAYERS layers, fp32 compute with TF32 off, the same weights on the
+    card and on the machine's CPU: with `default_opt_cfg`, then with
+    8-bit moments. The loss within LC_LOSS_RTOL, the grad norm within
+    LC_GNORM_RTOL; the largest difference in the updated parameters; the
+    8-bit moments equal except where a value sits within LC_TIE of a
+    rounding tie of its block's scale (the count printed)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on")
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(lm_configs.get_config(TRAIN_LM),
+                              n_layers=LC_LAYERS, compute_dtype="float32")
+    host0 = lm_common.init_params(lm.model_desc(cfg), seed=0, device="cpu")
+    ctx = train_mod.model_ctx(LC_SEQ)
+    runs, times = {}, {}
+    for compress in (False, True):
+        opt_cfg = dataclasses.replace(steps_mod.default_opt_cfg(cfg),
+                                      compress=compress)
+        step_fn = steps_mod.make_train_step(cfg, ctx, accum=1,
+                                            opt_cfg=opt_cfg)
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            params = lm_common.map_descs(lambda t: t.clone().to(d), host0)
+            opt = adam_mod.adam_init(params, opt_cfg)
+            batch = train_batch(cfg, LC_BATCH, LC_SEQ, 0, d)
+            t0 = time.perf_counter()
+            with train_mod.deterministic(d):
+                _, _, met = step_fn(params, opt, batch)
+            met = {k: float(v) for k, v in met.items()}
+            times[(compress, where)] = time.perf_counter() - t0
+            runs[(compress, where)] = {"params": params, "opt": opt,
+                                       "met": met}
+    out = {}
+    for compress in (False, True):
+        card, cpu = runs[(compress, "card")], runs[(compress, "cpu")]
+        loss_err = abs(card["met"]["loss"] - cpu["met"]["loss"]) / \
+            abs(cpu["met"]["loss"])
+        gn_err = abs(card["met"]["grad_norm"] - cpu["met"]["grad_norm"]) / \
+            abs(cpu["met"]["grad_norm"])
+        if loss_err > LC_LOSS_RTOL or gn_err > LC_GNORM_RTOL:
+            raise AssertionError(f"card vs CPU train step (compress="
+                                 f"{compress}): loss {loss_err}, grad norm "
+                                 f"{gn_err}")
+        dp = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            lm_common.tree_leaves(card["params"]),
+            lm_common.tree_leaves(cpu["params"])))
+        out["compress" if compress else "plain"] = {
+            "loss_card": card["met"]["loss"], "loss_cpu": cpu["met"]["loss"],
+            "loss_rel_err": loss_err, "grad_norm_card":
+            card["met"]["grad_norm"], "grad_norm_cpu":
+            cpu["met"]["grad_norm"], "grad_norm_rel_err": gn_err,
+            "max_abs_param_diff": dp, "card_s": times[(compress, "card")],
+            "cpu_s": times[(compress, "cpu")]}
+    # the 8-bit moments: equal but at rounding ties
+    total, parted, worst = parted_moments(
+        runs[(False, "cpu")], runs[(True, "card")], runs[(True, "cpu")],
+        steps_mod.default_opt_cfg(cfg).block)
+    if worst > LC_TIE:
+        raise AssertionError(f"an 8-bit moment parts {worst} from a tie")
+    scale_err = max(float(((a["s"].cpu() - b["s"]).abs() / b["s"]).max())
+                    for part in ("mu", "nu")
+                    for a, b in zip(moment_entries(runs[(True, "card")], part),
+                                    moment_entries(runs[(True, "cpu")], part)))
+    out["compress"].update(int8_moments=total, int8_parted=parted,
+                           int8_parted_worst_tie_distance=worst,
+                           scale_max_rel_err=scale_err)
+    del runs
+    fields = {"arch": TRAIN_LM, "layers": LC_LAYERS, "batch": LC_BATCH,
+              "seq": LC_SEQ, "loss_rtol": LC_LOSS_RTOL,
+              "grad_norm_rtol": LC_GNORM_RTOL, "tie": LC_TIE, **out,
+              "seconds": time.perf_counter() - t_phase}
+    emit("train.card_vs_cpu", **fields)
+    return fields
+
+
+def bits_sum(t: torch.Tensor) -> int:
+    """The sum of a leaf's raw bits (as int64), slice by slice: a cheap
+    fingerprint that a change of any element moves."""
+    view = t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+    rows = adam_mod.leaf_rows(view)
+    return int(sum(torch.sum(rows[r], dtype=torch.int64)
+                   for r in adam_mod.row_ranges(view.shape)))
+
+
+def run_train_family(arch, dev) -> dict:
+    """Phase 16 (d): one train step of `arch` at its published width
+    (TRAIN_DEPTH's cut), in its own dtypes and optimizer (deepseek-v2:
+    bf16 parameters, 8-bit moments): D_ACCUM microbatches of
+    microbatch_seqs sequences, in deterministic mode. The loss finite,
+    every leaf changed (a bf16 leaf whose step is below half its ulp
+    excepted, and counted), the step time and peak memory."""
+    t_phase = time.perf_counter()
+    cfg, n = fam_config(arch, TRAIN_DEPTH.get(arch))
+    seq = W_TRAIN_SEQ if cfg.encoder_layers else D_TRAIN_SEQ
+    b = D_ACCUM * cfg.microbatch_seqs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = draw_on_card(lm.model_desc(cfg), 0, dev,
+                          dtype=getattr(torch, cfg.param_dtype))
+    opt_cfg = steps_mod.default_opt_cfg(cfg)
+    opt = adam_mod.adam_init(params, opt_cfg)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    before = [bits_sum(t) for t in lm_common.tree_leaves(params)]
+    batch = train_batch(cfg, b, seq, 0, dev)
+    step_fn = steps_mod.make_train_step(cfg, train_mod.model_ctx(seq),
+                                        accum=D_ACCUM, opt_cfg=opt_cfg)
+    step_s, met = timed_step(step_fn, params, opt, batch, True, dev)
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    if not np.isfinite(met["loss"]):
+        raise AssertionError(f"{arch}: non-finite loss {met}")
+    unchanged = []
+    for i, (t, s) in enumerate(zip(lm_common.tree_leaves(params), before)):
+        if bits_sum(t) != s:
+            continue
+        # an unchanged leaf: only a bf16 one whose step lr·(1 + wd·|p|),
+        # |update| <= 1 at step 1, is below half its smallest ulp
+        small = float(t.abs().min())
+        half_ulp = 0.5 * small * 2.0 ** -7
+        if t.dtype != torch.bfloat16 or small == 0 or \
+                opt_cfg.lr * (1 + opt_cfg.weight_decay * float(
+                    t.abs().max())) >= half_ulp:
+            raise AssertionError(f"{arch}: leaf {i} {tuple(t.shape)} "
+                                 f"unchanged by the step")
+        unchanged.append(i)
+    bounds = train_bounds(cfg, n, b, seq, cfg.encoder_seq)
+    fields = {"arch": arch, "layers": cfg.n_layers, "params": n,
+              "param_dtype": cfg.param_dtype, "compute_dtype":
+              cfg.compute_dtype, "compressed_moments": opt_cfg.compress,
+              "remat": cfg.remat, "global_batch": b, "accum": D_ACCUM,
+              "seq": seq, "loss": met["loss"], "grad_norm": met["grad_norm"],
+              "leaves": len(before), "unchanged_bf16_leaves_below_half_ulp":
+              len(unchanged), "draw_s": draw_s, "step_ms": step_s * 1e3,
+              "tokens_per_s": b * seq / step_s, "peak_device_mb": peak,
+              **bounds, "seconds": time.perf_counter() - t_phase}
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    emit("train.family", **fields)
+    return fields
+
+
+def run_training(fx, router, dev) -> dict:
+    """Phase 16: (a)-(b) `run_train_lm`, (c) `run_train_devices`, (d)
+    `run_train_family` for each of TRAIN_FAMS, then (e): (a)'s step-6
+    checkpoint restored through `CheckpointManager`, cast to bf16, serving
+    phase 14 (d)'s RAG path on phase 5's handle and router with the launch
+    counts set to 0 just before its queues and read just after. Returns
+    the phase's summary with (e)'s counts under "launches"."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train-lm-",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        lm_run = run_train_lm(dev, root)
+        devices = run_train_devices(dev)
+        fams = {arch: run_train_family(arch, dev) for arch in TRAIN_FAMS}
+        t0 = time.perf_counter()
+        cfg = lm_configs.get_config(TRAIN_LM)
+        desc = lm.model_desc(cfg)
+        state, meta = CheckpointManager(os.path.join(root, "a")).restore(
+            {"params": desc}, device=dev)
+        if meta["step"] != L_STEPS:
+            raise AssertionError(f"restored step {meta['step']}")
+        params16 = lm_common.cast_floats(state["params"], torch.bfloat16)
+        del state
+        restore_s = time.perf_counter() - t0
+        path, launches = run_rag_path(fx, router, cfg, params16, dev,
+                                      tag="train.rag_path")
+        del params16
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"lm": {k: lm_run[k] for k in (
+                "losses", "step_ms_median_3_6", "tokens_per_s",
+                "peak_device_mb", "bound_ms", "device_idle_share",
+                "deterministic_step_ms", "nondeterministic_step_ms")},
+            "card_vs_cpu": {k: devices[k] for k in ("plain", "compress")},
+            "families": {a: {k: f[k] for k in (
+                "loss", "step_ms", "peak_device_mb", "bound_ms",
+                "unchanged_bf16_leaves_below_half_ulp")}
+                for a, f in fams.items()},
+            "rag": {"restore_s": restore_s,
+                    **{k: path[k] for k in ("embed_ms", "route_retrieve_ms",
+                                            "generate_ms")}},
+            "launches": launches}
+
+
+PROFILE_ATTEMPTS = 3
+
+
 def profile_phase(name: str, fn, host_ops: bool = True) -> dict:
     """`fn()` once under torch.profiler: wall time, the device's busy time
     (the sum of its kernel, copy and fill intervals, which one stream runs
@@ -4983,27 +5472,52 @@ def profile_phase(name: str, fn, host_ops: bool = True) -> dict:
     operator, or by kernel name without `host_ops`, which records the
     device's activity alone: a pass of hundreds of thousands of operators
     costs the profiler tens of seconds to read back). Returns the line's
-    fields."""
-    torch.cuda.synchronize()
+    fields.
+
+    CUPTI now and then hands back no device record for a session (seen
+    once on a pass of 7 ms), so a session without one is run again, up to
+    `PROFILE_ATTEMPTS` times; if none records the device, the pass is
+    timed between CUDA events instead, and the busy time and idle share
+    are `None` (not measured)."""
     activities = [ProfilerActivity.CUDA]
     if host_ops:
         activities.append(ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
+        if busy_us > 0:
+            break
+        print(f"chip_smoke: profile {name}: the profiler recorded no "
+              f"device activity (attempt {attempt} of {PROFILE_ATTEMPTS})",
+              file=sys.stderr, flush=True)
+    else:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
-    if busy_us == 0:
-        raise AssertionError(f"profile {name}: no device activity recorded")
+        fields = {"wall_s": wall, "device_busy_s": None,
+                  "device_idle_share": None, "top_device_ms": [],
+                  "device_span_s_cuda_events": start.elapsed_time(end) / 1e3,
+                  "profiler_attempts": PROFILE_ATTEMPTS}
+        emit(f"profile.{name}", **fields)
+        return fields
     avgs = sorted(prof.key_averages(),
                   key=lambda a: a.self_device_time_total, reverse=True)
     top = [[a.key[:70], a.self_device_time_total / 1e3, a.count]
            for a in avgs[:6] if a.self_device_time_total > 0]
     fields = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
               "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-              "top_device_ms": top}
+              "top_device_ms": top, "profiler_attempts": attempt}
     emit(f"profile.{name}", **fields)
     return fields
 
@@ -5483,6 +5997,19 @@ def main() -> int:
         if launches_fam[name] == 0:
             raise AssertionError(f"the RAG path with deepseek-v2 never "
                                  f"launched {name}")
+    # phase 16, LM training: qwen2-0.5b trained, resumed and preempted at
+    # full width, one step card against CPU, one step of each other
+    # family, then the trained model serving the RAG path, its launch
+    # counts set to 0 just before its queues and read just after
+    t0 = time.perf_counter()
+    trained = run_training(fx, svc.router, dev)
+    launches_trained = trained.pop("launches")
+    emit("training", seconds=time.perf_counter() - t0,
+         launches=launches_trained, **trained)
+    for name in ("masked_topk", "selectivity"):
+        if launches_trained[name] == 0:
+            raise AssertionError(f"the RAG path with the trained model never "
+                                 f"launched {name}")
     serving_total = {name: sum(c[name] for c in launches_serving.values())
                      for name in KERNEL_WRAPPERS}
     launches_by_path = {"main": launches, "sharded": launches_sharded,
@@ -5491,7 +6018,8 @@ def main() -> int:
                         "anyk": launches_anyk, "sharded_live": launches_sl,
                         "store": launches_store, "serving": serving_total,
                         "train": launches_train, "rag": launches_rag,
-                        "rag_deepseek": launches_fam}
+                        "rag_deepseek": launches_fam,
+                        "rag_trained": launches_trained}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []

@@ -5,8 +5,8 @@ variant of the §6.2(b) ablation.
 
 Training runs on a torch device ("cuda" by default) under autograd, with
 the JAX package's recipe: He-normal weights and zero biases, the batch
-order of `np.random.default_rng(seed)`, and its Adam update
-`(mu/bc1) / (sqrt(nu/bc2) + eps)` written out (`_adam_update`). The
+order of `np.random.default_rng(seed)`, and its Adam
+(`repro_torch.optim.adam_update` with `AdamConfig(lr=lr)`). The
 initial weights come from a `torch.Generator` on the host, so one seed
 starts the same fit on any device; the JAX package draws its own with
 `jax.random`, and its parameters carry across through `init=` /
@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.ann.index import resolve_device
+from repro_torch.optim import AdamConfig, adam_init, adam_update
 
 
 @dataclasses.dataclass
@@ -77,13 +78,6 @@ class StackedMLP(nn.Module):
 
 # ---- training ---------------------------------------------------------------
 
-# Adam as the JAX package's router fits run it (`AdamConfig` defaults:
-# no weight decay, no moment compression)
-ADAM_B1 = 0.9
-ADAM_B2 = 0.999
-ADAM_EPS = 1e-8
-
-
 def init_mlp(sizes: tuple, *, seed: int | None = None,
              generator: torch.Generator | None = None,
              device="cuda") -> list:
@@ -122,27 +116,15 @@ def _ce_loss(params, x, y):
 
 
 def _adam_init(params: list) -> dict:
-    return {"step": 0,
-            "mu": [{k: torch.zeros_like(v) for k, v in l.items()}
-                   for l in params],
-            "nu": [{k: torch.zeros_like(v) for k, v in l.items()}
-                   for l in params]}
+    """`optim.adam_init` with the router fits' `AdamConfig` (the JAX
+    package's defaults: no weight decay, no moment compression)."""
+    return adam_init(params, AdamConfig())
 
 
 def _adam_update(grads: list, state: dict, params: list, lr: float) -> None:
-    """One Adam step in place on `params` and `state`; the bias
-    corrections in float32, as the JAX package computes them."""
-    state["step"] += 1
-    t = np.float32(state["step"])
-    bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** t)
-    bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** t)
-    with torch.no_grad():
-        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            for k in p:
-                mu[k] = ADAM_B1 * mu[k] + (1 - ADAM_B1) * g[k]
-                nu[k] = ADAM_B2 * nu[k] + (1 - ADAM_B2) * (g[k] * g[k])
-                update = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + ADAM_EPS)
-                p[k] -= lr * update
+    """One `optim.adam_update` step at `lr`, in place on `params` and
+    `state`, as the JAX package's fits call it."""
+    adam_update(grads, state, params, AdamConfig(lr=lr))
 
 
 def _train_epoch(params: list, state: dict, xb: torch.Tensor,

@@ -1,3 +1,3 @@
-"""Launchers: the serving driver (`serve`). The JAX package's training
-driver and its mesh-level launchers wait (ROADMAP.md queue 1 items 2c
-and 3)."""
+"""Launchers: the serving driver (`serve`), the step builders (`steps`)
+and the training driver (`train`). The JAX package's mesh-level
+launchers wait (ROADMAP.md queue 1 item 3)."""

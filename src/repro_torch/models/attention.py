@@ -21,8 +21,11 @@ c_kv cache each step, as the JAX package does; its scores multiply by
 (whisper's decoder) reads the encoder's K/V through the same chunked
 attention, unmasked. The sequence-sharded flash decode
 (`gqa_decode_flash`, a `shard_map` that never runs on one device) waits
-for the mesh level (ROADMAP.md queue 1 item 3), and `mla_train` for the
-training slice (item 2c).
+for the mesh level (ROADMAP.md queue 1 item 3).
+
+Training (`gqa_train`, `mla_train`) runs the prefill's chunked attention
+under autograd: the masked scores are `torch.where`'s `NEG_INF`, so a
+masked pair's gradient is 0, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -116,8 +119,8 @@ def _attend_chunked(q, k, v, *, causal: bool, window: int, q_offset: int,
 
 def gqa_train(p, x, cfg: ModelConfig, positions, *, causal=True,
               qc: int = 1024):
-    """The training forward's attention (forward only; the port has no
-    training path yet, ROADMAP.md queue 1 item 2c)."""
+    """Full-sequence attention without a cache: the training forward's,
+    and the encoder's (`causal=False`)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     out = _attend_chunked(q, k, v, causal=causal, window=cfg.sliding_window,
@@ -253,6 +256,12 @@ def _mla_attend(p, q_c, q_r, c_kv, k_r, cfg: ModelConfig, *, causal: bool,
         outs.append(torch.einsum("bhqt,bthd->bqhd", probs, v))
     out = torch.cat(outs, dim=1).reshape(b, s, h * MLA_V)
     return out @ p["wo"]
+
+
+def mla_train(p, x, cfg: ModelConfig, positions, *, qc: int = 1024):
+    q_c, q_r, c_kv, k_r = _mla_qkv(p, x, cfg, positions)
+    return _mla_attend(p, q_c, q_r, c_kv, k_r, cfg, causal=True,
+                       q_offset=0, qc=qc)
 
 
 def mla_prefill(p, x, cfg: ModelConfig, positions, *, qc: int = 256):

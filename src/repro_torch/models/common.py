@@ -63,14 +63,14 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def _unflatten(tree, leaves):
+def tree_unflatten(tree, leaves):
     """`tree`'s structure with `leaves` (an iterator, in `tree_leaves`
     order) in place of its leaves."""
     if isinstance(tree, dict):
-        filled = {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+        filled = {k: tree_unflatten(tree[k], leaves) for k in sorted(tree)}
         return {k: filled[k] for k in tree}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_unflatten(v, leaves) for v in tree)
+        return type(tree)(tree_unflatten(v, leaves) for v in tree)
     return next(leaves)
 
 
@@ -113,7 +113,7 @@ def init_params(tree, *, seed: int, device="cuda", dtype=None):
             t = torch.randn(d.shape, generator=gen, dtype=torch.float32)
             t = t.mul_(np.float32(init_std(d))).to(dt)
         out.append(t.to(dev))
-    return _unflatten(tree, iter(out))
+    return tree_unflatten(tree, iter(out))
 
 
 def params_from_numpy(tree, device="cuda"):

@@ -1,5 +1,5 @@
-"""Model assembly for serving: descriptors, prefill and cached decode of
-every configuration the JAX package supports — the dense decoders,
+"""Model assembly: descriptors, the training forward, prefill and cached
+decode of every configuration the JAX package supports — the dense decoders,
 MoE and MLA (grok-1, deepseek-v2), the xLSTM stack (sLSTM + mLSTM), the
 Hymba hybrid (attention + Mamba heads, ring-buffer KV cache) and the
 Whisper-style encoder-decoder.
@@ -34,6 +34,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -196,6 +197,99 @@ def _layer(layers, i: int) -> dict:
             for k, v in layers.items()}
 
 
+def _unstack(layers, n: int) -> list:
+    """The n per-layer parameter dicts: of a stacked tree, views from one
+    `torch.unbind` a leaf; of a tuple, its dicts."""
+    if isinstance(layers, tuple):
+        return list(layers)
+    per = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+           for k, v in layers.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def _remat(cfg: ModelConfig, fn, x):
+    """fn(x), under activation checkpointing where `cfg.remat` is set and
+    autograd records through x (serving, whose parameters need no
+    gradient, runs fn as it is)."""
+    if cfg.remat and torch.is_grad_enabled() and x.requires_grad:
+        return checkpoint(fn, x, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(x)
+
+
+# ---------------------------------------------------------------------------
+# block application (training and the encoder)
+# ---------------------------------------------------------------------------
+
+def _apply_block(kind: str, lp, x, cfg: ModelConfig, ctx: ModelCtx,
+                 positions, enc_kv=None, *, qc: int):
+    """Residual block, the JAX package's training math. Returns (x, aux):
+    aux the MoE layer's load-balance loss, else 0."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ("attn", "enc", "dec"):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if cfg.use_mla:
+            y = A.mla_train(lp["attn"], h, cfg, positions, qc=qc)
+        else:
+            y = A.gqa_train(lp["attn"], h, cfg, positions,
+                            causal=(kind != "enc"), qc=qc)
+        x = x + y
+        if kind == "dec":
+            h = rms_norm(x, lp["lnx"], cfg.norm_eps)
+            x = x + A.cross_attend(lp["cross"], h, enc_kv, cfg, qc=qc)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if "moe" in lp:
+            y, aux = M.moe_apply(lp["moe"], h, cfg, ctx)
+        elif kind == "attn":
+            y = M.mlp_apply(lp["mlp"], h)
+        else:
+            y = M.mlp_apply(lp["mlp"], h, gated=False, act=M.gelu)
+        return x + y, aux
+    if kind == "mlstm":
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        return x + S.mlstm_train(lp["mlstm"], h, cfg, chunk=ctx.gla_chunk), \
+            aux
+    if kind == "slstm":
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, _ = S.slstm_train(lp["slstm"], h, cfg)
+        return x + y, aux
+    if kind == "hymba":
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y_attn = A.gqa_train(lp["attn"], h, cfg, positions, qc=qc)
+        y_ssm = S.mamba_train(lp["mamba"], h, cfg, chunk=ctx.gla_chunk)
+        x = x + 0.5 * (y_attn + y_ssm)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + M.mlp_apply(lp["mlp"], h), aux
+    raise ValueError(kind)
+
+
+def _run_layers(params, x, cfg: ModelConfig, ctx: ModelCtx, positions, *,
+                qc: int):
+    """Every layer in order, each under `_remat`; (x, the summed aux)."""
+    aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, lp in zip(layer_kinds(cfg),
+                        _unstack(params["layers"], cfg.n_layers)):
+        x, aux = _remat(cfg, lambda xx, kind=kind, lp=lp: _apply_block(
+            kind, lp, xx, cfg, ctx, positions, qc=qc), x)
+        aux_tot = aux_tot + aux
+    return x, aux_tot
+
+
+def _run_layers_encdec(params, x, cfg: ModelConfig, ctx: ModelCtx,
+                       positions, enc_out):
+    """Whisper's decoder layers over the encoder's output: each layer's
+    cross K/V projected inside its (rematerialised) body."""
+    aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        def body(xx, lp=lp):
+            kv = A.cross_kv(lp["cross"], enc_out, cfg)
+            return _apply_block("dec", lp, xx, cfg, ctx, positions, kv,
+                                qc=ctx.qc_train)
+        x, aux = _remat(cfg, body, x)
+        aux_tot = aux_tot + aux
+    return x, aux_tot
+
+
 # ---------------------------------------------------------------------------
 # whisper's encoder
 # ---------------------------------------------------------------------------
@@ -203,18 +297,49 @@ def _layer(layers, i: int) -> dict:
 def _encode(params, enc_inputs, cfg: ModelConfig, ctx: ModelCtx):
     """Whisper encoder over precomputed frame embeddings [B, S_enc, D]:
     bidirectional attention with the query chunk `ctx.qc_train` (the JAX
-    package's; `pick_qc(1500, 1024)` = 750), the ungated GELU MLP."""
+    package's; `pick_qc(1500, 1024)` = 750), the ungated GELU MLP; each
+    layer under `_remat`."""
     dt = getattr(torch, cfg.compute_dtype)
     x = enc_inputs.to(dt) + params["enc_pos"].to(dt)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.encoder_layers):
-        lp = _layer(params["enc_layers"], i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + A.gqa_train(lp["attn"], h, cfg, positions, causal=False,
-                            qc=ctx.qc_train)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + M.mlp_apply(lp["mlp"], h, gated=False, act=M.gelu)
+    for lp in _unstack(params["enc_layers"], cfg.encoder_layers):
+        x, _ = _remat(cfg, lambda xx, lp=lp: _apply_block(
+            "enc", lp, xx, cfg, ctx, positions, qc=ctx.qc_train), x)
     return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def forward_train(params, batch, cfg: ModelConfig, ctx: ModelCtx):
+    """batch: {"tokens" [B, S], "targets" [B, S] integer tensors (a target
+    < 0 is masked out), and "enc_inputs" [B, S_enc, D] for the
+    encoder-decoder}. Returns (total loss, {"loss", "aux", "tokens"}),
+    0-d fp32 tensors: the masked mean NLL of the fp32 logits, the summed
+    MoE aux loss, the count of unmasked targets; total = loss + 0.01 ·
+    aux / n_layers."""
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    params = cast_floats(params, getattr(torch, cfg.compute_dtype))
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(s, device=x.device)
+    if cfg.encoder_layers:
+        enc_out = _encode(params, batch["enc_inputs"], cfg, ctx)
+        x, aux = _run_layers_encdec(params, x, cfg, ctx, positions, enc_out)
+    else:
+        x, aux = _run_layers(params, x, cfg, ctx, positions,
+                             qc=ctx.qc_train)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logp = torch.log_softmax((x @ params["head"]).float(), dim=-1)
+    targets = batch["targets"].long()
+    mask = (targets >= 0).float()
+    nll = -torch.gather(logp, -1, torch.clamp(targets, min=0)[..., None]
+                        )[..., 0]
+    n_tok = torch.sum(mask)
+    loss = torch.sum(nll * mask) / torch.clamp(n_tok, min=1.0)
+    total = loss + 0.01 * aux / max(cfg.n_layers, 1)
+    return total, {"loss": loss, "aux": aux, "tokens": n_tok}
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
 """Recurrent sequence mixers: the gated linear attention (GLA) chunk scan,
 mLSTM (xLSTM's matrix memory), sLSTM (xLSTM's scalar memory, truly
-recurrent) and Mamba-style SSD heads (Hymba), for serving.
+recurrent) and Mamba-style SSD heads (Hymba), for serving and training.
 
 mLSTM and Mamba prefill run the GLA recurrence in chunkwise-parallel
 form, as the JAX package does: within a chunk, decay-weighted attention;
 across chunks, a loop carries the [dk, dv] matrix state. Decode is the
 one-token recurrent update. sLSTM loops over time.
+
+On CUDA a chunk's running sum of log-decays is a log-step scan
+(`chunk_cumsum`): CUDA's floating-point cumsum is nondeterministic, and
+training runs in deterministic mode on the card.
 
 One deliberate divergence (ROADMAP.md queue 1 item 7): the JAX package
 weights a chunk's causal pairs by scaling the queries by exp(cum) and
@@ -16,9 +20,11 @@ chunk of 256), and its outputs turn non-finite. The port weights each
 causal pair by exp(cum_q - cum_k) instead, every exponent <= 0: the same
 quantity in exact arithmetic, finite where the JAX package's overflows.
 
-The training forwards (`mlstm_train`, `mamba_train`) wait for the
-training slice (ROADMAP.md queue 1 item 2c); prefill calls the scan
-itself, as the JAX package's `forward_prefill` does.
+The training forwards (`mlstm_train`, `mamba_train`) run the same scan
+under autograd; prefill calls the scan itself, as the JAX package's
+`forward_prefill` does. The non-causal pairs' exponents are -inf before
+the `exp` (a `masked_fill`), so their weights and their gradients are 0,
+never inf · 0 = NaN.
 """
 
 from __future__ import annotations
@@ -34,6 +40,31 @@ from repro_torch.models.common import ParamDesc
 # ---------------------------------------------------------------------------
 # GLA chunk scan: y_t = (q_t / z_t) · Σ_{u≤t} (∏_{j=u+1..t} f_j) k_u v_uᵀ
 # ---------------------------------------------------------------------------
+
+def log_step_cumsum(x, dim: int = 1):
+    """The inclusive cumsum of `x` along `dim` as a log-step scan
+    (Hillis-Steele): ceil(log2 n) rounds, round k adding each element's
+    value 2^k places back. Elementwise adds and slices only, so it is
+    deterministic on CUDA and differentiable; its sums round in another
+    order than a sequential cumsum, within fp32 rounding."""
+    n = x.shape[dim]
+    k = 1
+    while k < n:
+        x = torch.cat([x.narrow(dim, 0, k),
+                       x.narrow(dim, k, n - k) + x.narrow(dim, 0, n - k)],
+                      dim)
+        k *= 2
+    return x
+
+
+def chunk_cumsum(x):
+    """The running sum of a chunk's log-decays [B, c, H] along c:
+    `torch.cumsum` on the CPU; `log_step_cumsum` on CUDA, whose
+    floating-point cumsum has no deterministic implementation (it raises
+    under `torch.use_deterministic_algorithms`, which training runs
+    under on the card)."""
+    return log_step_cumsum(x, 1) if x.is_cuda else torch.cumsum(x, dim=1)
+
 
 def gla_chunk_scan(q, k, v, log_f, state0=None, *, chunk: int = 256,
                    normalize: bool = True):
@@ -60,7 +91,7 @@ def gla_chunk_scan(q, k, v, log_f, state0=None, *, chunk: int = 256,
         rows = slice(ci * c, (ci + 1) * c)
         qi, ki = q[:, rows].float(), k[:, rows].float()
         vi = v[:, rows].float()
-        cum = torch.cumsum(log_f[:, rows].float(), dim=1)           # [B,c,H]
+        cum = chunk_cumsum(log_f[:, rows].float())                  # [B,c,H]
         tot = cum[:, -1:]                                           # [B,1,H]
         # intra-chunk: each causal pair (q >= k) weighted by
         # exp(cum_q - cum_k) <= 1; the other pairs by exp(-inf) = 0
@@ -137,6 +168,14 @@ def _mlstm_qkvgates(p, x, cfg: ModelConfig):
     return q, k, v, log_f, o
 
 
+def mlstm_train(p, x, cfg: ModelConfig, *, chunk: int = 256):
+    b, s, _ = x.shape
+    q, k, v, log_f, o = _mlstm_qkvgates(p, x, cfg)
+    y, _ = gla_chunk_scan(q, k, v, log_f, chunk=chunk)
+    y = y.reshape(b, s, -1) * o
+    return y @ p["wo"]
+
+
 def mlstm_decode(p, x, state, cfg: ModelConfig):
     b = x.shape[0]
     q, k, v, log_f, o = _mlstm_qkvgates(p, x, cfg)
@@ -167,31 +206,42 @@ def slstm_train(p, x, cfg: ModelConfig, state0=None, valid=None):
 
     valid: optional [S] bool — False positions write nothing (i=0) and
     keep state (f=1); used by padded-prefill serving. The serving paths
-    call it for prefill and, with S = 1 and the cached state, decode."""
+    call it for prefill and, with S = 1 and the cached state, decode;
+    training without `valid`. A step is a few dozen small launches, so
+    each shared term is computed once and `valid`'s selects are skipped
+    when it is None (the same values)."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
-    gx = (x @ p["wx"]).reshape(b, s, h, hd * 4)
-    c, n, hprev, m = state0 if state0 is not None else \
-        slstm_init_state(cfg, b, h_dtype=x.dtype, device=x.device)
-    if valid is None:
-        valid = torch.ones((s,), dtype=torch.bool, device=x.device)
+    # the loop runs head-major ([H, B, ...]), so the recurrent product is
+    # one bmm a step, with no permutes around it
+    gx = (x @ p["wx"]).reshape(b, s, h, hd * 4).permute(1, 2, 0, 3)
+    c, n, hprev, m = (t.transpose(0, 1) for t in (
+        state0 if state0 is not None else
+        slstm_init_state(cfg, b, h_dtype=x.dtype, device=x.device)))
     ys = []
     for t in range(s):
-        gxt, v_t = gx[:, t], valid[t]
-        g = gxt + torch.einsum("bhd,hdf->bhf", hprev, p["wr"])
+        gxt = gx[t]
+        g = gxt + torch.bmm(hprev, p["wr"])
         gi, gf, gz, go = torch.chunk(g.float(), 4, dim=-1)
-        log_i = torch.where(v_t, torch.clamp(gi, max=8.0), -30.0)
-        log_f = torch.where(v_t, F.logsigmoid(gf), 0.0)
-        m_new = torch.maximum(log_f + m, log_i)
-        c = torch.exp(log_f + m - m_new) * c + \
-            torch.exp(log_i - m_new) * torch.tanh(gz)
-        n = torch.exp(log_f + m - m_new) * n + torch.exp(log_i - m_new)
+        log_i = torch.clamp(gi, max=8.0)
+        log_f = F.logsigmoid(gf)
+        if valid is not None:
+            log_i = torch.where(valid[t], log_i, -30.0)
+            log_f = torch.where(valid[t], log_f, 0.0)
+        fm = log_f + m
+        m_new = torch.maximum(fm, log_i)
+        keep = torch.exp(fm - m_new)            # the JAX package's terms,
+        write = torch.exp(log_i - m_new)        # each computed once
+        c = keep * c + write * torch.tanh(gz)
+        n = keep * n + write
         hnew = torch.sigmoid(go) * c / torch.clamp(n, min=1e-6)
-        hprev = torch.where(v_t, hnew.to(gxt.dtype), hprev)
+        h_t = hnew.to(gxt.dtype)
+        hprev = h_t if valid is None else torch.where(valid[t], h_t, hprev)
         m = m_new
         ys.append(hnew)
-    y = torch.stack(ys, dim=1).reshape(b, s, h * hd).to(x.dtype)
-    return y @ p["wo"], (c, n, hprev, m)
+    y = torch.stack(ys, dim=2).permute(1, 2, 0, 3).reshape(b, s, h * hd)
+    y = y.to(x.dtype)
+    return y @ p["wo"], tuple(t.transpose(0, 1) for t in (c, n, hprev, m))
 
 
 def slstm_decode(p, x, state, cfg: ModelConfig):
@@ -235,6 +285,13 @@ def _mamba_qkv(p, x, cfg: ModelConfig):
     log_f = dt * a[None, None, :]
     v = v * dt[..., None].to(v.dtype)          # Euler-step input scaling
     return q, kk, v, log_f
+
+
+def mamba_train(p, x, cfg: ModelConfig, *, chunk: int = 256):
+    b, s, _ = x.shape
+    q, k, v, log_f = _mamba_qkv(p, x, cfg)
+    y, _ = gla_chunk_scan(q, k, v, log_f, chunk=chunk, normalize=False)
+    return y.reshape(b, s, -1) @ p["w_out"]
 
 
 def mamba_decode(p, x, state, cfg: ModelConfig):

@@ -88,13 +88,28 @@ def test_port_imports_with_jax_and_reference_blocked():
         "layer_desc, model_desc, cache_desc, forward_prefill, "
         "forward_decode)",
         "from repro_torch.launch.serve import pad_prompts, generate, main",
+        "from repro_torch.models.lm import forward_train",
+        "from repro_torch.models.attention import mla_train",
+        "from repro_torch.models.ssm import mlstm_train, mamba_train",
+        "from repro_torch.optim import (AdamConfig, adam_init, "
+        "adam_update, clip_by_global_norm, cosine_schedule, "
+        "linear_warmup_cosine)",
+        "from repro_torch.checkpoint import (CheckpointManager, "
+        "save_pytree, restore_pytree, restore_metadata)",
+        "from repro_torch.runtime import StepMonitor, PreemptionHandler",
+        "from repro_torch.data.tokens import TokenStream",
+        "from repro_torch.launch.steps import (default_opt_cfg, "
+        "accum_steps, make_train_step, init_train_state, "
+        "make_prefill_step, make_decode_step)",
+        "from repro_torch.launch.train import train_loop, main",
         "assert hasattr(__import__('repro_torch.ann.dataset', "
         "fromlist=['ANNDataset']).ANNDataset, 'cache_key')",
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))",
         "               for m in sys.modules if sys.modules[m] is not None)",
         "print('ok')",
     ])
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -667,6 +667,7 @@ def test_rag_example_runs_on_cpu(tmp_path):
     """`examples/torch_rag_serve.py --device cpu --requests 4` end to end
     (about 10 s here): offline stage, the queue, generation."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
                REPRO_ARTIFACTS=str(tmp_path))
     out = subprocess.run(
         [sys.executable, str(ROOT / "examples" / "torch_rag_serve.py"),
@@ -680,7 +681,8 @@ def test_rag_example_runs_on_cpu(tmp_path):
 def test_serve_launcher_encoder_decoder_on_cpu():
     """The launcher's whisper smoke run: its stand-in frame embeddings
     through the encoder, then generation."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--arch", "whisper-medium", "--device", "cpu", "--batch", "2",
@@ -691,7 +693,8 @@ def test_serve_launcher_encoder_decoder_on_cpu():
 
 
 def test_serve_launcher_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--device", "cpu", "--batch", "2", "--max-new", "4"], env=env,

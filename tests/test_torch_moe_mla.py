@@ -274,6 +274,7 @@ def test_rag_example_serves_deepseek_on_cpu(tmp_path):
     config: MoE + MLA) end to end on the CPU: the offline stage, the
     queue, generation."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
                REPRO_ARTIFACTS=str(tmp_path))
     out = subprocess.run(
         [sys.executable, str(ROOT / "examples" / "torch_rag_serve.py"),
