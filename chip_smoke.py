@@ -312,6 +312,42 @@ not 0):
              to bf16, serving phase 14 (d)'s RAG path on phase 5's handle
              and router, the launch counts set to 0 just before its queues
              and read just after (`launches_by_path.rag_trained`).
+17. mesh   — the mesh level (`launch/mesh.py`, `launch/specs.py`,
+             `ann/distributed.py`, the models' mesh paths), the kernels
+             built before any rank starts. (a) One rank on NCCL, a
+             (1, 1) mesh on the card: `make_sharded_search` over phase
+             3's arrays for phase 5's three exact batches at k = 10 and
+             ANY_K, its ids bit-identical to `fx.search(batch,
+             "prefilter")`, the launch counts set to 0 just before and
+             read just after (`launches_by_path.mesh`: `masked_topk`,
+             `masked_topk_large` at k = 200, `merge_topk`); one qwen2-0.5b
+             step (full width cut to MESH_DEPTH layers, fp32 compute, TF32
+             off, 4 x 2,048 tokens, weights drawn on the card from a seed)
+             with DTensor parameters, its loss the plain step's bits
+             (else within 1e-6). (b) MESH_RANKS processes sharing the
+             card on this script's host-staged gloo backend
+             (`HOST_STAGED`: NCCL refuses two ranks on one card, and
+             gloo's own CUDA collectives crash under DTensor's functional
+             collectives), each joined with a timeout: the search on a
+             (4, 1) mesh (a quarter of the rows a rank) equal to (a)'s;
+             the same step on a (2, 2) mesh, FSDP over "data" and TP over
+             "model", loss within 1e-5 and grad norm within 1e-4 of (a)'s
+             plain step, its collectives counted (CommDebugMode) and
+             logged, no parameter sharded over "model" gathered over it;
+             the trained state gathered to the host and resharded onto a
+             (1, 4) mesh (`runtime.elastic_reshard`), one step there
+             within 1e-5 of the same step on one rank; deepseek-v2 (1
+             layer, full width, bf16) on a (1, 2) mesh (160 experts on 2
+             ranks: expert-parallel) at capacity factor E/k (nothing
+             drops, so a flip parts only its own row): the MoE layer
+             dispatching as one rank does on the same input, bit for bit,
+             and a prefill within BF16_TOL of one rank's on the rows whose
+             dispatch did not part at a near-tie, the tie twice the
+             measured largest gate-logit difference between the two.
+             Each step's collectives are counted in one pass and its time
+             read in a second pass without the counting. Per rank: peak
+             memory and step milliseconds, four ranks sharing one card
+             (not scaling numbers).
 
 Every line carries "t", the seconds since the script started. The last
 three lines are nvidia-smi's name and power limit, the kernels'
@@ -327,6 +363,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -347,7 +384,11 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as tdist  # noqa: E402
+from torch._C._distributed_c10d import \
+    _create_work_from_future  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
+from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.ann import bench  # noqa: E402
@@ -4517,10 +4558,12 @@ class DispatchSpy:
     call, each token's chosen experts (as a sorted set), the gap between
     its k-th and k+1-th gate logit, and whether each assignment reaches
     its expert (its slot holds its token; past capacity, or the last
-    in-capacity token of an expert that overflowed, it does not)."""
+    in-capacity token of an expert that overflowed, it does not); with
+    `keep_logits`, the gate logits too."""
 
-    def __init__(self):
+    def __init__(self, keep_logits: bool = False):
         self.calls = []
+        self.keep_logits = keep_logits
         self._orig = moe_mod.dispatch
 
     def __enter__(self):
@@ -4541,16 +4584,18 @@ class DispatchSpy:
             "sets": torch.sort(g["gidx"], -1).values.cpu().numpy(),
             "gap": (top[:, k - 1] - top[:, k]).cpu().numpy(),
             "reach": reach.reshape(-1, k).cpu().numpy()})
+        if self.keep_logits:
+            self.calls[-1]["logits"] = g["logits"].float().cpu().numpy()
         return g
 
     def drops(self) -> int:
         return int(sum((~c["reach"]).sum() for c in self.calls))
 
 
-def parted_rows(a: list, b: list, rows: int) -> tuple:
+def parted_rows(a: list, b: list, rows: int, tie: float = GATE_TIE) -> tuple:
     """Compare two runs' dispatches call by call (`DispatchSpy.calls` of
     the same forwards over `rows` batch rows). A token whose expert set
-    parts must do so at a near-tie (GATE_TIE on both devices' gaps) unless
+    parts must do so at a near-tie (`tie` on both runs' gaps) unless
     its row parted in an earlier call; capacity drops may part only after
     an expert set has (a flip moves loads). Returns (the parted rows, the
     gaps where sets parted)."""
@@ -4563,7 +4608,7 @@ def parted_rows(a: list, b: list, rows: int) -> tuple:
         for t in tok:
             gap = float(max(ca["gap"][t], cb["gap"][t]))
             gaps.append(gap)
-            if t // s not in parted and gap > GATE_TIE:
+            if t // s not in parted and gap > tie:
                 raise AssertionError(f"token {t}'s experts part without a "
                                      f"near-tie: k/k+1 gap {gap}")
         parted.update(int(t) // s for t in tok)
@@ -5462,6 +5507,680 @@ def run_training(fx, router, dev) -> dict:
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# ranks that share the card
+# ---------------------------------------------------------------------------
+# Phase 17 (b) runs MESH_RANKS processes on one card. NCCL refuses two
+# ranks on one card, and gloo's own CUDA collectives crash under DTensor's
+# functional collectives (torch 2.11 on an H100: a segmentation fault in
+# the first all-gather). So those ranks take HOST_STAGED, a backend that
+# copies each CUDA collective's tensors to the host, runs the collective
+# there over an inner gloo group and copies the results back. Only this
+# script chooses it, by name: `register_host_staged()` in every rank,
+# then `init_process_group(HOST_STAGED, ...)`. A deployment has a card a
+# rank and takes NCCL; the package holds nothing of this. The class
+# leans on c10d's private hooks for Python groups (a work from a future,
+# a backend registered by device type, the group's name), which is why
+# it stays beside the one check that needs it.
+
+HOST_STAGED = "gloo_host"
+
+
+def _done(result):
+    fut = torch.futures.Future()
+    fut.set_result(result)
+    return _create_work_from_future(fut)
+
+
+def _host(tensors):
+    return [t.detach().cpu() for t in tensors]
+
+
+def _back(dst, src) -> None:
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+class HostStagedGroup(tdist.ProcessGroup):
+    """Every collective of a CUDA tensor staged through host memory: the
+    inputs copied to the host, the collective run there by an inner gloo
+    group, the outputs copied back. Each call returns once the outputs
+    are written (the copies to the host wait for the card's queue). It
+    serves what DTensor and the port call: all-reduce, all-gather,
+    reduce-scatter (and their tensor and coalesced forms), barrier."""
+
+    def __init__(self, store, rank: int, size: int, timeout):
+        super().__init__(rank, size)
+        self._inner = tdist.ProcessGroupGloo(store, rank, size, timeout)
+        self._name = self._desc = None
+        # the few collectives that reach a group's backend by device type
+        # and not through its methods (DTensor's shard-to-shard
+        # all-to-all) find gloo, whose all-to-all takes CUDA tensors
+        for device in ("cpu", "cuda"):
+            self._register_backend(torch.device(device),
+                                   tdist.ProcessGroup.BackendType.GLOO,
+                                   self._inner)
+
+    def getBackendName(self):
+        return HOST_STAGED
+
+    # a Python group holds its own name: the base class reads it from a
+    # backend, which this group has none of
+    def _set_group_name(self, name):
+        self._name = name
+
+    def _set_group_desc(self, desc):
+        self._desc = desc
+
+    @property
+    def group_name(self):
+        return self._name
+
+    @property
+    def group_desc(self):
+        return self._desc
+
+    def allreduce(self, tensors, opts=None):
+        host = _host(tensors)
+        self._inner.allreduce(host, opts).wait()
+        _back(tensors, host)
+        return _done(tensors)
+
+    def allgather(self, outputs, inputs, opts=None):
+        host_out = [_host(o) for o in outputs]
+        self._inner.allgather(host_out, _host(inputs), opts).wait()
+        for o, h in zip(outputs, host_out):
+            _back(o, h)
+        return _done(outputs)
+
+    def all_gather_single(self, output, input, opts=None):
+        chunks = list(torch.chunk(output, self.size()))
+        return self.allgather([chunks], [input], opts)
+
+    def allgather_into_tensor_coalesced(self, outputs, inputs, opts=None):
+        for o, i in zip(outputs, inputs):
+            self.all_gather_single(o, i, opts)
+        return _done(outputs)
+
+    def reduce_scatter(self, outputs, input_lists, opts=None):
+        host_out = _host(outputs)
+        self._inner.reduce_scatter(host_out, [_host(lst) for lst in
+                                              input_lists], opts).wait()
+        _back(outputs, host_out)
+        return _done(outputs)
+
+    def reduce_scatter_single(self, output, input, opts=None):
+        return self.reduce_scatter(
+            [output], [list(torch.chunk(input, self.size()))], opts)
+
+    def reduce_scatter_tensor_coalesced(self, outputs, inputs, opts=None):
+        for o, i in zip(outputs, inputs):
+            self.reduce_scatter_single(o, i, opts)
+        return _done(outputs)
+
+    def barrier(self, opts=None):
+        self._inner.barrier(opts).wait()
+        return _done([])
+
+
+def _create_host_staged(store, rank, size, timeout):
+    return HostStagedGroup(store, rank, size, timeout)
+
+
+def register_host_staged() -> None:
+    """Registers `HOST_STAGED` for CUDA and host tensors, in this process
+    (every rank registers it before `init_process_group`)."""
+    if HOST_STAGED not in tdist.Backend.backend_list:
+        tdist.Backend.register_backend(HOST_STAGED, _create_host_staged,
+                                       devices=["cpu", "cuda"])
+
+
+def split_mesh(shape, axes):
+    """Every block of prod(shape) consecutive ranks of the default process
+    group as a mesh of its own of `shape` named `axes`; returns this
+    rank's (phase 17's (1, 2) mesh inside its four ranks). Every rank
+    calls it, since every rank creates every group."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    n, world, me = math.prod(shape), tdist.get_world_size(), tdist.get_rank()
+    if world % n:
+        raise ValueError(f"{world} ranks do not split into meshes {shape}")
+    ranks = torch.arange(world).view(world // n, *shape)
+    groups = []
+    for d in range(len(shape)):
+        own = None
+        for line in ranks.movedim(d + 1, -1).reshape(-1, shape[d]).tolist():
+            g = tdist.new_group(line)
+            if me in line:
+                own = g
+        groups.append(own)
+    return DeviceMesh.from_group(groups, "cuda", mesh=ranks[me // n],
+                                 mesh_dim_names=axes)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the mesh level on the card
+# ---------------------------------------------------------------------------
+
+# (a) one rank on NCCL, a (1, 1) mesh; (b) MESH_RANKS ranks sharing the
+# card on the host-staged gloo backend (NCCL refuses two ranks on one
+# card, and gloo's own CUDA collectives crash under DTensor's functional
+# collectives). The qwen2-0.5b steps: full width at MESH_DEPTH layers,
+# fp32 compute and TF32 off (the parity is to fp32), MESH_BATCH x
+# MESH_SEQ tokens of `train_loop`'s step-0 and step-1 batches, the
+# weights drawn on the card from MESH_SEED, accumulation 1; the (2, 2)
+# step within MESH_LOSS_RTOL (loss) and MESH_GNORM_RTOL (grad norm) of
+# the single-rank step. deepseek-v2 at 1 layer and full width, bf16, at
+# capacity factor E/k (phase 15 (c)'s: nothing drops, so an expert flip
+# moves no other token out of its expert): MESH_DS_BATCH prompts of
+# MESH_DS_LEN tokens prefilled on a (1, 2) mesh (160 experts on 2
+# "model" ranks: expert-parallel). The mesh's and one rank's bf16
+# residuals part by their summation orders, and so do their gate logits:
+# two logits can change places only where they lie within twice the
+# largest measured difference, which is the near-tie of that
+# comparison.
+MESH_RANKS = 4
+MESH_DEPTH = 4
+MESH_BATCH, MESH_SEQ, MESH_SEED = 4, 2048, 7
+MESH_LOSS_RTOL, MESH_GNORM_RTOL, MESH_ONE_RANK_RTOL = 1e-5, 1e-4, 1e-6
+MESH_DS_BATCH, MESH_DS_LEN = 8, 32
+# the resharded (1, 4) step: every rank holds the whole batch (no data
+# axis), so it takes MESH_RESHARD_BATCH of the step-1 batch's sequences
+MESH_RESHARD_BATCH = 2
+MESH_JOIN_S = 150
+
+
+def mesh_lm_config():
+    cfg = lm_configs.get_config(TRAIN_LM)
+    return dataclasses.replace(cfg, n_layers=MESH_DEPTH,
+                               compute_dtype="float32")
+
+
+class CollectiveLog(torch.utils._python_dispatch.TorchDispatchMode):
+    """While entered, records each functional collective this process
+    issues: its op, the mesh axis of its group, and its input's shape."""
+
+    OPS = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
+           "all_to_all_single")
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.axis = {mesh.get_group(n).group_name: n
+                     for n in mesh.mesh_dim_names}
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._overloadpacket.__name__
+        if func.namespace == "_c10d_functional" and name in self.OPS:
+            group = args[-1] if isinstance(args[-1], str) else kwargs.get(
+                "group_name")
+            self.calls.append((name, self.axis.get(group, str(group)),
+                               tuple(args[0].shape)))
+        return func(*args, **(kwargs or {}))
+
+
+def gathered_params_over(log, params, mesh, axis: str) -> list:
+    """The parameters whose shards an all-gather over `axis` took as its
+    input (by shape: a parameter's local shard, or that shard gathered
+    over the data axes; parameters are 1-D and 2-D, the step's
+    activations have a batch and a sequence dimension)."""
+    from torch.distributed.tensor import Shard
+
+    shapes = set()
+    for p in lm_common.tree_leaves(params):
+        if not any(isinstance(pl, Shard) for pl, n in
+                   zip(p.placements, mesh.mesh_dim_names) if n == axis):
+            continue
+        local = list(p.to_local().shape)
+        shapes.add(tuple(local))
+        for pl, n in zip(p.placements, mesh.mesh_dim_names):
+            if n != axis and isinstance(pl, Shard):
+                local[pl.dim] *= mesh.size(mesh.mesh_dim_names.index(n))
+        shapes.add(tuple(local))
+    return [c for c in log.calls if c[0] == "all_gather_into_tensor"
+            and c[1] == axis and c[2] in shapes]
+
+
+def mesh_step(cfg, params, opt, batch, ctx, dev, timed: bool = True):
+    """One train step with its collectives counted (CommDebugMode) and
+    logged, then, with `timed`, a second step (the state moves on by it)
+    without the counting. Both timed on the host clock: (times in ms,
+    the first step's metrics, counts, log)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    step_fn = steps_mod.make_train_step(cfg, ctx, accum=1)
+    log = CollectiveLog(ctx.mesh) if lm_common.on_mesh(ctx) else None
+    comm = CommDebugMode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with train_mod.deterministic(dev), comm, (log or contextlib.nullcontext()):
+        _, _, met = step_fn(params, opt, batch)
+    metrics = {"loss": float(met["loss"]),
+               "grad_norm": float(met["grad_norm"])}
+    torch.cuda.synchronize()
+    times = {"counted_step_ms": (time.perf_counter() - t0) * 1e3}
+    counts = {str(k).split(".")[-1]: v
+              for k, v in comm.get_comm_counts().items()}
+    if timed:
+        t0 = time.perf_counter()
+        with train_mod.deterministic(dev):
+            _, _, met = step_fn(params, opt, batch)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        times["step_ms"] = (time.perf_counter() - t0) * 1e3
+    return times, metrics, counts, log
+
+
+def mesh_lm_state(cfg, dev):
+    """The parity steps' weights (drawn on the card from MESH_SEED) and
+    their optimizer state."""
+    params = draw_on_card(lm.model_desc(cfg), MESH_SEED, dev)
+    return params, adam_mod.adam_init(params, steps_mod.default_opt_cfg(cfg))
+
+
+def mesh_batch(cfg, step: int, dev):
+    return train_batch(cfg, MESH_BATCH, MESH_SEQ, step, dev)
+
+
+def mesh_answers(fx, batches: dict) -> dict:
+    """The single index's exact answers at k = 10 and ANY_K, by (k,
+    predicate)."""
+    return {(k, p): fx.search(QueryBatch(b.vectors, b.bitmaps, b.pred, k),
+                              "prefilter").ids
+            for k in (10, ANY_K) for p, b in batches.items()}
+
+
+def run_mesh_one_rank(fx, batches: dict, want: dict, dev) -> tuple:
+    """Phase 17 (a): a (1, 1) mesh on NCCL in this process: the sharded
+    search at k = 10 and ANY_K against the single index's exact answers
+    `want`, with the launch counts set to 0 just before and read just
+    after; a qwen2-0.5b step with DTensor parameters against the plain
+    step on the same weights and batch. Returns (the summary, the launch
+    counts, the plain step's loss and grad norm)."""
+    from repro_torch.ann import distributed as dist_mod
+    from repro_torch.launch import mesh as mesh_mod
+
+    out = {"backend": "nccl", "mesh": [1, 1]}
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+    try:
+        dd = fx.device
+        base = [dist_mod.shard_rows(t, mesh) for t in
+                (dd.vectors, dd.norms, dd.bitmaps)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_launches()
+        got = {}
+        for k in (10, ANY_K):
+            fn = dist_mod.make_sharded_search(mesh, k=k)
+            for p, b in batches.items():
+                got[(k, p)] = fn(b.vectors, b.bitmaps, p, *base)
+        launches = read_launches()
+        out["search_s"] = time.perf_counter() - t0
+        for key, ids in got.items():
+            if not np.array_equal(ids.cpu().numpy(), want[key]):
+                raise AssertionError(f"mesh search at k, pred = {key} parts "
+                                     f"from the single index")
+        out["search"] = "bit-identical to fx.search(batch, 'prefilter') at "\
+            f"k = 10 and {ANY_K}"
+        del base
+        cfg = mesh_lm_config()
+        params, opt = mesh_lm_state(cfg, dev)
+        batch = mesh_batch(cfg, 0, dev)
+        ctx1 = train_mod.model_ctx(MESH_SEQ)
+        t1, m1, _, _ = mesh_step(cfg, params, opt, batch, ctx1, dev)
+        del params, opt
+        torch.cuda.empty_cache()
+        params, opt = mesh_lm_state(cfg, dev)
+        params, opt = train_mod.place_state(
+            params, opt, cfg, steps_mod.default_opt_cfg(cfg), mesh)
+        ctx = train_mod.model_ctx(MESH_SEQ, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        tm, mm, counts, _ = mesh_step(
+            cfg, params, opt, train_mod.place_batch(cfg, batch, mesh), ctx,
+            dev)
+        del params, opt
+        torch.cuda.empty_cache()
+        rel = abs(mm["loss"] - m1["loss"]) / abs(m1["loss"])
+        if rel > MESH_ONE_RANK_RTOL:
+            raise AssertionError(f"(1, 1) mesh loss {mm['loss']} vs plain "
+                                 f"{m1['loss']}")
+        out["step"] = {"plain": m1, "mesh": mm, "same_bits":
+                       mm["loss"] == m1["loss"], "loss_rel_diff": rel,
+                       "plain_ms": t1["step_ms"],
+                       "plain_counted_ms": t1["counted_step_ms"],
+                       "mesh_ms": tm["step_ms"],
+                       "mesh_counted_ms": tm["counted_step_ms"],
+                       "peak_device_mb": torch.cuda.max_memory_allocated()
+                       / 1e6, "collectives": counts}
+    finally:
+        tdist.destroy_process_group()
+    return out, launches, m1
+
+
+def mesh_rank_main(rank: int, store_path: str, data_dir: str,
+                   queue) -> None:
+    """Phase 17 (b) in one of MESH_RANKS processes sharing the card."""
+    try:
+        queue.put((rank, mesh_rank_work(rank, store_path, data_dir)))
+    except BaseException as e:
+        import traceback
+        queue.put((rank, {"error": f"{type(e).__name__}: {e}",
+                          "traceback": traceback.format_exc()[-4000:]}))
+        raise
+
+
+def mesh_rank_work(rank, store_path, data_dir) -> dict:
+    import datetime
+
+    from repro_torch.ann import distributed as dist_mod
+    from repro_torch.launch import mesh as mesh_mod
+
+    # four processes share the card: free blocks go back to the pool
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    say = (lambda what, **kw: emit(f"mesh.rank0.{what}", **kw)) \
+        if rank == 0 else (lambda what, **kw: None)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    register_host_staged()
+    tdist.init_process_group(
+        HOST_STAGED, store=tdist.FileStore(store_path, MESH_RANKS),
+        rank=rank, world_size=MESH_RANKS,
+        timeout=datetime.timedelta(seconds=MESH_JOIN_S))
+    out = {"backend": HOST_STAGED}
+    t_all = time.perf_counter()
+    try:
+        # the search on a (4, 1) mesh: each rank's 250,000 rows
+        mesh = mesh_mod.make_mesh((MESH_RANKS, 1), ("data", "model"))
+        arr = {n: np.load(os.path.join(data_dir, n + ".npy"), mmap_mode="r")
+               for n in ("vectors", "norms", "bitmaps")}
+        base = [dist_mod.shard_rows(arr[n], mesh) for n in
+                ("vectors", "norms", "bitmaps")]
+        t0 = time.perf_counter()
+        same = True
+        for k in (10, ANY_K):
+            fn = dist_mod.make_sharded_search(mesh, k=k)
+            for p in range(3):
+                qv = np.load(os.path.join(data_dir, f"q{p}.npy"))
+                qb = np.load(os.path.join(data_dir, f"b{p}.npy"))
+                ids = fn(qv, qb, p, *base).cpu().numpy()
+                same &= np.array_equal(ids, np.load(os.path.join(
+                    data_dir, f"ids{k}_{p}.npy")))
+        out["search"] = {"mesh": [MESH_RANKS, 1], "rows_a_rank": int(
+            base[0].to_local().shape[0]), "equal_to_one_rank": bool(same),
+            "seconds": time.perf_counter() - t0}
+        say("search", **out["search"])
+        del base, arr
+        # qwen2-0.5b on (2, 2): FSDP over "data", TP over "model"
+        mesh = mesh_mod.make_mesh((2, 2), ("data", "model"))
+        cfg = mesh_lm_config()
+        opt_cfg = steps_mod.default_opt_cfg(cfg)
+        t0 = time.perf_counter()
+        params, opt = mesh_lm_state(cfg, dev)
+        params, opt = train_mod.place_state(params, opt, cfg, opt_cfg, mesh)
+        torch.cuda.empty_cache()
+        say("state_2x2", seconds=time.perf_counter() - t0)
+        ctx = train_mod.model_ctx(MESH_SEQ, mesh)
+        batch = train_mod.place_batch(cfg, mesh_batch(cfg, 0, dev), mesh)
+        torch.cuda.reset_peak_memory_stats()
+        ts, m, counts, log = mesh_step(cfg, params, opt, batch, ctx, dev)
+        whole = gathered_params_over(log, params, mesh, "model")
+        out["step_2x2"] = {
+            **m, **ts, "collectives": counts,
+            "params_gathered_over_model": len(whole),
+            "gathers_by_axis": dict(Counter(
+                c[1] for c in log.calls
+                if c[0] == "all_gather_into_tensor")),
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 1e6}
+        say("step_2x2", **out["step_2x2"])
+        del batch, log
+        # the trained state on the host, then resharded onto (1, 4)
+        t0 = time.perf_counter()
+        host_p = lm_common.map_descs(lambda t: t.full_tensor().cpu(), params)
+        host_o = {"step": opt["step"], **{
+            k: lm_common.map_descs(lambda t: t.full_tensor().cpu(), opt[k])
+            for k in ("mu", "nu")}}
+        del params, opt
+        torch.cuda.empty_cache()
+        gather_s = time.perf_counter() - t0
+        mesh4 = mesh_mod.make_mesh((1, MESH_RANKS), ("data", "model"))
+        t0 = time.perf_counter()
+        params, opt = train_mod.place_state(host_p, host_o, cfg, opt_cfg,
+                                            mesh4)
+        reshard_s = time.perf_counter() - t0
+        say("reshard", gather_s=gather_s, reshard_s=reshard_s)
+        ctx4 = train_mod.model_ctx(MESH_SEQ, mesh4)
+        batch1 = {k: v[:MESH_RESHARD_BATCH] for k, v in
+                  mesh_batch(cfg, 1, dev).items()}
+        t4, m4, counts4, _ = mesh_step(
+            cfg, params, opt, train_mod.place_batch(cfg, batch1, mesh4),
+            ctx4, dev)
+        del params, opt
+        torch.cuda.empty_cache()
+        out["reshard_1x4"] = {**m4, **t4,
+                              "gather_s": gather_s, "reshard_s": reshard_s,
+                              "batch": [MESH_RESHARD_BATCH, MESH_SEQ],
+                              "collectives": counts4}
+        say("step_1x4", **out["reshard_1x4"])
+        tdist.barrier()
+        if rank == 0:   # the same step on one rank from the same state
+            p1 = lm_common.map_descs(lambda t: t.to(dev), host_p)
+            o1 = {"step": host_o["step"], **{
+                k: lm_common.map_descs(lambda t: t.to(dev), host_o[k])
+                for k in ("mu", "nu")}}
+            _, m1, _, _ = mesh_step(cfg, p1, o1, batch1,
+                                    train_mod.model_ctx(MESH_SEQ), dev,
+                                    timed=False)
+            out["reshard_1x4"]["one_rank"] = m1
+            del p1, o1
+            torch.cuda.empty_cache()
+        del host_p, host_o
+        tdist.barrier()
+        t0 = time.perf_counter()
+        out["deepseek_1x2"] = mesh_deepseek(rank, dev)
+        say("deepseek", seconds=time.perf_counter() - t0,
+            **(out["deepseek_1x2"] or {}))
+        out["peak_device_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    finally:
+        tdist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def mesh_deepseek(rank: int, dev) -> dict | None:
+    """deepseek-v2 (1 layer, full width, bf16) prefilled on a (1, 2) mesh
+    by ranks 0 and 1 (ranks 2 and 3 only join the groups) at capacity
+    factor E/k: the MoE layer on the same input dispatching as one rank
+    does, bit for bit; the prefill's logits within BF16_TOL of one
+    rank's on the rows whose dispatch did not part at a near-tie of the
+    gate (twice the largest gate-logit difference measured between the
+    two prefills; at least one row held)."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    mesh = split_mesh((1, 2), ("data", "model"))
+    if rank >= 2:
+        return None
+    cfg, _ = fam_config("deepseek-v2-236b", 1)
+    cfg = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    desc = lm.model_desc(cfg)
+    full = draw_on_card(desc, MESH_SEED, dev, torch.bfloat16)
+    axes = mesh_mod.mesh_axes(mesh)
+    specs = lm_common.partition_specs(desc, tp_axis="model",
+                                      tp_size=axes.tp_size)
+    params = lm_common.tree_unflatten(full, iter(
+        lm_common.distribute(t, s, mesh) for t, s in
+        zip(lm_common.tree_leaves(full), lm_common.tree_leaves(specs))))
+    if rank != 0:
+        del full
+        torch.cuda.empty_cache()
+    ctx = lm.mesh_ctx(mesh, qc_prefill=64)
+    rng = np.random.default_rng(MESH_SEED)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab, size=(MESH_DS_BATCH, MESH_DS_LEN))).to(dev)
+    h = torch.from_numpy((rng.normal(size=(
+        MESH_DS_BATCH, MESH_DS_LEN, cfg.d_model))).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    row = lm_common.PartitionSpec("data", None)
+    moe_p = lm_common.map_descs(lambda t: t[0], params["layers"]["moe"])
+    with DispatchSpy(keep_logits=True) as spy_m:
+        with lm.mesh_mode(ctx):
+            y_m, _ = moe_mod.moe_apply(
+                moe_p, lm_common.distribute(
+                    h, lm_common.PartitionSpec("data", None, None), mesh),
+                cfg, ctx)
+        y_m = y_m.full_tensor()
+        t0 = time.perf_counter()
+        logits_m, _ = lm.forward_prefill(
+            params, {"tokens": lm_common.distribute(toks, row, mesh)}, cfg,
+            ctx)
+        logits_m = logits_m.full_tensor()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    del params
+    torch.cuda.empty_cache()
+    if rank != 0:
+        tdist.barrier(group=mesh.get_group("model"))
+        return {"prefill_ms": prefill_ms}
+    with DispatchSpy(keep_logits=True) as spy_1:
+        y_1, _ = moe_mod.moe_apply(
+            lm_common.map_descs(lambda t: t[0], full["layers"]["moe"]), h,
+            cfg, lm.ModelCtx())
+        logits_1, _ = lm.forward_prefill(full, {"tokens": toks}, cfg,
+                                         lm.ModelCtx(qc_prefill=64))
+    del full
+    torch.cuda.empty_cache()
+    tdist.barrier(group=mesh.get_group("model"))
+    a, b = spy_m.calls[0], spy_1.calls[0]
+    if not all(np.array_equal(a[key], b[key]) for key in ("sets", "gap",
+                                                          "reach")):
+        raise AssertionError("the mesh MoE layer dispatches otherwise than "
+                             "one rank on the same input")
+    logit_diff = max(float(np.abs(cm["logits"] - c1["logits"]).max())
+                     for cm, c1 in zip(spy_m.calls[1:], spy_1.calls[1:]))
+    parted, gaps = parted_rows(spy_m.calls[1:], spy_1.calls[1:],
+                               MESH_DS_BATCH, tie=2 * logit_diff)
+    keep = [r for r in range(MESH_DS_BATCH) if r not in parted]
+    if not keep:
+        raise AssertionError("every prefill row's dispatch parted")
+    err = float((logits_m[keep] - logits_1[keep]).abs().max())
+    if err > BF16_TOL:
+        raise AssertionError(f"deepseek-v2 (1, 2) prefill logits differ by "
+                             f"{err} > {BF16_TOL}")
+    return {"mesh": [1, 2], "layout": "expert-parallel (160 experts, 80 a "
+            "rank)", "moe_dispatch": "bit-identical to one rank on the "
+            "same input", "moe_y_max_abs_err": float(
+                (y_m - y_1).abs().max()),
+            "prefill_rows_parted_at_near_tie": sorted(parted),
+            "gate_gaps_where_parted": gaps,
+            "gate_logit_max_abs_diff": logit_diff, "gate_tie": 2 * logit_diff,
+            "rows_held": len(keep), "rows": MESH_DS_BATCH,
+            "capacity_factor": cfg.capacity_factor,
+            "drops": spy_m.drops() + spy_1.drops(),
+            "prefill_max_abs_err": err, "tol": BF16_TOL,
+            "prefill_ms": prefill_ms}
+
+
+def run_mesh(fx, batches: dict, dev) -> dict:
+    """Phase 17: (a) `run_mesh_one_rank`, then (b) MESH_RANKS processes
+    sharing the card (`mesh_rank_main`), each joined with a timeout; the
+    arrays they search written under `build/` for them. The kernels are
+    built before any rank starts."""
+    import multiprocessing
+
+    t_all = time.perf_counter()
+    _build.library()
+    want = mesh_answers(fx, batches)
+    one, launches, single = run_mesh_one_rank(fx, batches, want, dev)
+    emit("mesh.one_rank", seconds=time.perf_counter() - t_all, **one)
+    for name in ("masked_topk", "merge_topk"):
+        if launches[name] == 0:
+            raise AssertionError(f"the mesh path never launched {name}")
+    data_dir = tempfile.mkdtemp(prefix="mesh-", dir=os.path.join(ROOT,
+                                                                 "build"))
+    procs = []
+    try:
+        dd = fx.device
+        for n, t in (("vectors", dd.vectors), ("norms", dd.norms),
+                     ("bitmaps", dd.bitmaps)):
+            np.save(os.path.join(data_dir, n + ".npy"), t.cpu().numpy())
+        for p, b in batches.items():
+            np.save(os.path.join(data_dir, f"q{p}.npy"), b.vectors)
+            np.save(os.path.join(data_dir, f"b{p}.npy"), b.bitmaps)
+            for k in (10, ANY_K):
+                np.save(os.path.join(data_dir, f"ids{k}_{p}.npy"),
+                        want[(k, p)])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        queue = ctx.Queue()
+        store = os.path.join(data_dir, "store")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mesh_rank_main, args=(
+            r, store, data_dir, queue)) for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        res = {}
+        deadline = time.perf_counter() + MESH_JOIN_S
+        while len(res) < MESH_RANKS:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                late = sorted(set(range(MESH_RANKS)) - set(res))
+                raise AssertionError(f"mesh ranks {late} did not finish in "
+                                     f"{MESH_JOIN_S} s")
+            try:
+                r, o = queue.get(timeout=min(left, 5.0))
+                res[r] = o
+            except Exception:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+        for p in procs:
+            p.join(timeout=30)
+        ranks_s = time.perf_counter() - t0
+        bad = {r: o for r, o in res.items() if "error" in o}
+        if bad or len(res) < MESH_RANKS:
+            raise AssertionError(f"mesh ranks failed: {bad or res}; exit "
+                                 f"codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        shutil.rmtree(data_dir, ignore_errors=True)
+    r0 = res[0]
+    if not all(o["search"]["equal_to_one_rank"] for o in res.values()):
+        raise AssertionError("the (4, 1) mesh search parts from (a)'s")
+    st = r0["step_2x2"]
+    for key, tol in (("loss", MESH_LOSS_RTOL),
+                     ("grad_norm", MESH_GNORM_RTOL)):
+        rel = abs(st[key] - single[key]) / abs(single[key])
+        if rel > tol:
+            raise AssertionError(f"(2, 2) step {key} {st[key]} vs one rank "
+                                 f"{single[key]}: {rel} > {tol}")
+    if any(o["step_2x2"]["params_gathered_over_model"] for o in
+           res.values()):
+        raise AssertionError("a parameter sharded over 'model' was "
+                             "gathered over it")
+    rs = r0["reshard_1x4"]
+    if abs(rs["loss"] - rs["one_rank"]["loss"]) > MESH_LOSS_RTOL * abs(
+            rs["one_rank"]["loss"]):
+        raise AssertionError(f"resharded step loss {rs['loss']} vs one rank "
+                             f"{rs['one_rank']['loss']}")
+    emit("mesh.ranks", note=f"{MESH_RANKS} ranks sharing one card: per-rank "
+         "times and memory, not scaling numbers", ranks_s=ranks_s,
+         single_rank=single, per_rank={r: {
+             "backend": o["backend"], "seconds": o["seconds"],
+             "peak_device_mb": o["peak_device_mb"],
+             "step_2x2_ms": o["step_2x2"]["step_ms"],
+             "step_2x2_counted_ms": o["step_2x2"]["counted_step_ms"],
+             "reshard_1x4_step_ms": o["reshard_1x4"]["step_ms"],
+             "reshard_1x4_counted_ms": o["reshard_1x4"]["counted_step_ms"]}
+             for r, o in sorted(res.items())},
+         search=r0["search"], step_2x2=st, reshard_1x4=rs,
+         deepseek_1x2=r0["deepseek_1x2"])
+    return {"seconds": time.perf_counter() - t_all, "launches": launches}
+
+
 PROFILE_ATTEMPTS = 3
 
 
@@ -6010,6 +6729,13 @@ def main() -> int:
         if launches_trained[name] == 0:
             raise AssertionError(f"the RAG path with the trained model never "
                                  f"launched {name}")
+    # phase 17, the mesh level: one rank on NCCL, then four ranks sharing
+    # the card; the mesh search's launch counts set to 0 just before it
+    # and read just after
+    t0 = time.perf_counter()
+    mesh_run = run_mesh(fx, exact_batches, dev)
+    launches_mesh = mesh_run.pop("launches")
+    emit("mesh", seconds=time.perf_counter() - t0, launches=launches_mesh)
     serving_total = {name: sum(c[name] for c in launches_serving.values())
                      for name in KERNEL_WRAPPERS}
     launches_by_path = {"main": launches, "sharded": launches_sharded,
@@ -6019,7 +6745,8 @@ def main() -> int:
                         "store": launches_store, "serving": serving_total,
                         "train": launches_train, "rag": launches_rag,
                         "rag_deepseek": launches_fam,
-                        "rag_trained": launches_trained}
+                        "rag_trained": launches_trained,
+                        "mesh": launches_mesh}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []

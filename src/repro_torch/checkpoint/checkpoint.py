@@ -15,7 +15,10 @@ Writes are atomic (a `.tmp` directory, then a rename), so a preemption
 mid-save never corrupts the latest checkpoint.
 
 Restore returns CPU tensors (or tensors on `device=`) in the manifest's
-dtypes; the caller moves them where it trains.
+dtypes; the caller moves them where it trains, or places them on a mesh
+with `runtime.elastic_reshard`. A tree of DTensors saves as full tensors:
+every rank gathers each leaf (a collective, so every rank calls `save`),
+and rank 0 alone writes and rotates.
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.common import map_descs, tree_unflatten
+from repro_torch.models.common import is_dtensor, map_descs, tree_unflatten
 
 
 def _paths(tree, prefix: tuple = ()) -> list:
@@ -53,12 +57,26 @@ def _describe(tree) -> str:
     return "*"
 
 
+def _host(t, copy: bool = False) -> torch.Tensor:
+    """A tensor's full value on the host (a DTensor gathered)."""
+    t = t.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
+    return t.to("cpu", copy=copy)
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process
+    group, or a process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _flatten(tree) -> tuple[dict, dict]:
     """{key: numpy array} (bf16 as its uint16 view) and {key: dtype name}
     of a tree of tensors."""
     out, dtypes = {}, {}
     for key, leaf in _paths(tree):
-        t = leaf.detach().cpu()
+        t = _host(leaf)
         if t.dtype == torch.bfloat16:
             out[key], dtypes[key] = \
                 t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -69,10 +87,13 @@ def _flatten(tree) -> tuple[dict, dict]:
 
 
 def save_pytree(path: str, tree, *, metadata: dict | None = None) -> None:
-    """Atomic save of a tree of tensors."""
+    """Atomic save of a tree of tensors (DTensors gathered by every rank,
+    written by rank 0)."""
+    flat, dtypes = _flatten(tree)
+    if not _writer():
+        return
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    flat, dtypes = _flatten(tree)
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump({"treedef": "repro_torch " + _describe(tree),
@@ -145,7 +166,9 @@ class CheckpointManager:
         place) and a thread writes them (`wait()` joins it)."""
         meta = {"step": step, **(metadata or {})}
         if background:      # a copy: the caller updates its tensors in place
-            host = map_descs(lambda x: x.detach().to("cpu", copy=True), tree)
+            host = map_descs(lambda x: _host(x, copy=True), tree)
+            if not _writer():
+                return
             self.wait()
             self._thread = threading.Thread(
                 target=self._save_sync, args=(step, host, meta), daemon=True)
@@ -155,7 +178,8 @@ class CheckpointManager:
 
     def _save_sync(self, step, tree, meta):
         save_pytree(self._step_dir(step), tree, metadata=meta)
-        self._rotate()
+        if _writer():
+            self._rotate()
 
     def wait(self) -> None:
         if self._thread is not None and self._thread.is_alive():

@@ -21,7 +21,8 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.configs.base import ShapeSpec, get_config, \
+    get_smoke_config
 from repro_torch.models import common, lm
 
 
@@ -56,8 +57,16 @@ def generate(params, cfg, prompts: list[list[int]], *, max_new: int,
     The sampled path (`greedy=False`) draws Gumbel noise from a CPU
     `torch.Generator(seed)`, where the JAX package uses
     `jax.random.categorical`: the same distribution, other draws.
+
+    On a mesh (`ctx.mesh`; every rank calls it alike, the parameters
+    DTensors placed by their specs) the prompts are sharded by rows over
+    the data axes, the cache after prefill is laid out by
+    `launch.specs.cache_structs`'s specs (the sequence over "model" where
+    the kv heads do not shard), each step's logits are gathered, and
+    every rank returns the same tokens.
     """
     ctx = ctx or lm.ModelCtx(qc_prefill=64, gla_chunk=64)
+    mesh = ctx.mesh
     lens_set = {len(p) for p in prompts}
     if len(lens_set) != 1:
         raise ValueError(
@@ -71,12 +80,18 @@ def generate(params, cfg, prompts: list[list[int]], *, max_new: int,
     batch = {"tokens": tokens.to(dev)}
     if enc_inputs is not None:
         batch["enc_inputs"] = torch.as_tensor(enc_inputs).to(dev)
+    if mesh is not None:
+        batch = {k: _rows(v, ctx) for k, v in batch.items()}
     params = common.cast_floats(params, getattr(torch, cfg.compute_dtype))
     logits, cache = lm.forward_prefill(params, batch, cfg, ctx,
                                        prompt_len=max_len)
+    if mesh is not None:
+        cache = _place_cache(cache, cfg, ctx, len(prompts), s_max)
     gen = None if greedy else torch.Generator().manual_seed(int(seed))
     out = []
     for i in range(max_new):
+        if mesh is not None:
+            logits = logits.full_tensor()
         last = logits[:, -1]
         if greedy:
             nxt = torch.argmax(last, dim=-1)
@@ -85,9 +100,31 @@ def generate(params, cfg, prompts: list[list[int]], *, max_new: int,
             nxt = torch.argmax(last - torch.log(-torch.log(u)).to(dev), -1)
         out.append(nxt)
         if i + 1 < max_new:
-            logits, cache = lm.forward_decode(params, cache, nxt[:, None],
+            step = nxt[:, None] if mesh is None else _rows(nxt[:, None], ctx)
+            logits, cache = lm.forward_decode(params, cache, step,
                                               max_len + i, cfg, ctx)
     return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+
+
+def _rows(t, ctx):
+    """`t` (whole on every rank) sharded by rows over the data axes."""
+    return common.distribute(
+        t, common.PartitionSpec(common.dp_part(ctx), *[None] * (t.ndim - 1)),
+        ctx.mesh)
+
+
+def _place_cache(cache, cfg, ctx, batch: int, s_max: int):
+    """Prefill's cache laid out by `cache_structs`'s specs for a decode of
+    `batch` rows against `s_max` positions."""
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import mesh_axes
+
+    _, parts = specs.cache_structs(
+        cfg, ShapeSpec("generate", s_max, batch, "decode"),
+        mesh_axes(ctx.mesh))
+    leaves = [common.constrain(t, ctx, *sp) for t, sp in
+              zip(common.tree_leaves(cache), common.tree_leaves(parts))]
+    return common.tree_unflatten(cache, iter(leaves))
 
 
 def main():

@@ -7,8 +7,14 @@ detached aliases of the parameters (the caller's tensors never get
 `requires_grad`), then clips and updates the parameters and the optimizer
 state in place: a step holds one set of parameters, one set of fp32
 gradients (plus one microbatch's under accumulation) and the moments.
-The JAX package's `with_sharding_constraint` on the microbatches has no
-counterpart on one device.
+
+On a mesh (`ctx.mesh`) the parameters, the optimizer state and the batch
+are DTensors: the batch's rows sharded over the data axes, microbatch i
+is the strided slice [i::accum] of each rank's own rows (the JAX
+package's split, constrained to P(None, dp), which keeps every
+microbatch on every data rank), each gradient is laid out as its
+parameter before it is summed, and the step's loss comes back as a plain
+tensor, the same on every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from repro_torch.ann.index import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import common, lm
+from repro_torch.models.common import is_dtensor, to_placements
 from repro_torch.optim import (AdamConfig, adam_init, adam_update,
                                clip_by_global_norm)
 
@@ -34,8 +41,33 @@ def accum_steps(cfg: ModelConfig, shape: ShapeSpec, dp_size: int) -> int:
 def microbatch(batch: dict, i: int, accum: int) -> dict:
     """Microbatch i of `accum`: rows i, i + accum, ... (the JAX package's
     [B, ...] -> [accum, B/accum, ...] split, row b at (b % accum,
-    b // accum))."""
-    return {k: v[i::accum] for k, v in batch.items()}
+    b // accum)). A DTensor's microbatch is the same slice of each
+    rank's own rows, so no row moves between ranks; its rows are the
+    whole batch's [i::accum] when each rank's row count divides by
+    `accum`."""
+    return {k: _strided(v, i, accum) for k, v in batch.items()}
+
+
+def _strided(v, i: int, accum: int):
+    if not is_dtensor(v):
+        return v[i::accum]
+    from torch.distributed.tensor import DTensor
+
+    local = v.to_local()
+    if local.shape[0] % accum:
+        raise ValueError(f"{local.shape[0]} rows a rank do not split into "
+                         f"{accum} microbatches")
+    shape = (v.shape[0] // accum,) + tuple(v.shape[1:])
+    out = local[i::accum]
+    return DTensor.from_local(out, v.device_mesh, v.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=out.new_empty(shape,
+                                                   device="meta").stride())
+
+
+def _plain(t):
+    """A scalar DTensor as a plain tensor (the same on every rank)."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def make_train_step(cfg: ModelConfig, ctx: lm.ModelCtx, *, accum: int,
@@ -53,8 +85,12 @@ def make_train_step(cfg: ModelConfig, ctx: lm.ModelCtx, *, accum: int,
         leaves = common.tree_leaves(params)
         live = [p.detach().requires_grad_() for p in leaves]
         tree = common.tree_unflatten(params, iter(live))
-        total, _ = lm.forward_train(tree, mbatch, cfg, ctx)
-        return total.detach(), torch.autograd.grad(total, live)
+        with lm.mesh_mode(ctx):
+            total, _ = lm.forward_train(tree, mbatch, cfg, ctx)
+            grads = torch.autograd.grad(total, live)
+        grads = [to_placements(g, p.placements) if is_dtensor(g) else g
+                 for g, p in zip(grads, leaves)]
+        return _plain(total.detach()), grads
 
     def train_step(params, opt_state, batch):
         if batch["tokens"].shape[0] % accum:
@@ -64,8 +100,7 @@ def make_train_step(cfg: ModelConfig, ctx: lm.ModelCtx, *, accum: int,
             loss, grads = grads_of(params, batch)
             grads = [g.float() for g in grads]
         else:
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in common.tree_leaves(params)]
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)

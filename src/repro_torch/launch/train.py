@@ -23,6 +23,14 @@ workspace fixed (`CUBLAS_WORKSPACE_CONFIG=:4096:8`) before cuBLAS first
 starts in the process; `main` sets it, and a caller that trains on the
 card sets it before its first CUDA matmul.
 
+On a mesh (`train_loop(mesh=...)`, every rank calling it with the same
+arguments) the parameters and the optimizer state are placed by their
+partition specs with FSDP over the data axes and TP over "model"
+(`launch.specs.param_partition(..., fsdp=True)`), each step's batch is
+sharded by rows over the data axes, and a checkpoint holds the full
+tensors, written by rank 0; a restore places them on whatever mesh the
+run has (`runtime.elastic_reshard`).
+
 Whisper's encoder inputs are 0.05 · N(0, 1) frame embeddings drawn each
 step from numpy, seeded by (seed, step) (`encoder_inputs`), as the port's
 serving launcher draws them; the JAX package draws them from
@@ -37,17 +45,22 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch.ann.index import resolve_device
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.configs.base import ShapeSpec, get_config, \
+    get_smoke_config
 from repro_torch.data.tokens import TokenStream
+from repro_torch.launch import specs as SP
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import mesh_axes, on_device
 from repro_torch.models import lm
-from repro_torch.models.common import map_descs
+from repro_torch.models.common import distribute, map_descs
 from repro_torch.optim import AdamConfig
 from repro_torch.optim.adam import adam_state_desc
 from repro_torch.runtime import PreemptionHandler, StepMonitor
+from repro_torch.runtime.fault import elastic_reshard
 
 CUBLAS_WORKSPACE = ":4096:8"
 
@@ -84,12 +97,37 @@ def encoder_inputs(cfg, batch: int, seed: int, step: int) -> torch.Tensor:
         size=(batch, cfg.encoder_seq, cfg.d_model))).astype(np.float32))
 
 
-def model_ctx(seq_len: int) -> lm.ModelCtx:
+def model_ctx(seq_len: int, mesh=None) -> lm.ModelCtx:
     """The training chunks for `seq_len` tokens (the JAX package's
     `train_loop`'s): query chunks of up to 1,024, GLA chunks of up to
-    256."""
-    return lm.ModelCtx(qc_train=min(1024, seq_len),
-                       gla_chunk=min(256, seq_len))
+    256; on `mesh` its axes too."""
+    chunks = dict(qc_train=min(1024, seq_len), gla_chunk=min(256, seq_len))
+    return lm.mesh_ctx(mesh, **chunks) if mesh is not None \
+        else lm.ModelCtx(**chunks)
+
+
+def place_state(params, opt_state, cfg, opt_cfg, mesh):
+    """Host parameters and optimizer state placed on `mesh` by their
+    partition specs (FSDP over the data axes, TP over "model"); the step
+    counter stays on the host."""
+    axes = mesh_axes(mesh)
+    desc = lm.model_desc(cfg)
+    ospecs = SP.param_partition(SP.opt_structs(desc, cfg, opt_cfg), axes,
+                                fsdp=True)
+    return elastic_reshard(params, SP.param_partition(desc, axes, fsdp=True),
+                           mesh), \
+        {"step": opt_state["step"],
+         "mu": elastic_reshard(opt_state["mu"], ospecs["mu"], mesh),
+         "nu": elastic_reshard(opt_state["nu"], ospecs["nu"], mesh)}
+
+
+def place_batch(cfg, batch: dict, mesh) -> dict:
+    """A step's batch (the whole batch on every rank) sharded by rows over
+    the data axes, as `launch.specs.batch_partition` gives it."""
+    b, s = batch["tokens"].shape
+    parts = SP.batch_partition(cfg, ShapeSpec("train", s, b, "train"),
+                               mesh_axes(mesh))
+    return {k: distribute(v, parts[k], mesh) for k, v in batch.items()}
 
 
 def step_batch(cfg, stream: TokenStream, seed: int, step: int, dev) -> dict:
@@ -106,13 +144,14 @@ def step_batch(cfg, stream: TokenStream, seed: int, step: int, dev) -> dict:
 def _restore(manager, cfg, opt_cfg, dev):
     """The latest checkpoint's parameters and optimizer state (shapes
     checked against the descriptors, so nothing is drawn first): the
-    tensors on `dev`, the step counter on the host. Returns (params,
-    state, its step)."""
+    tensors on `dev` (the host when `dev` is None), the step counter on
+    the host. Returns (params, state, its step)."""
     desc = lm.model_desc(cfg)
     state, meta = manager.restore(
         {"params": desc, "opt": adam_state_desc(desc, opt_cfg)})
     opt = state["opt"]
-    to_dev = lambda tree: map_descs(lambda t: t.to(dev), tree)
+    to_dev = lambda tree: tree if dev is None else map_descs(
+        lambda t: t.to(dev), tree)
     return to_dev(state["params"]), {"step": opt["step"],
                                      "mu": to_dev(opt["mu"]),
                                      "nu": to_dev(opt["nu"])}, \
@@ -124,16 +163,19 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
                log_every: int = 10, lr: float = 3e-4, seed: int = 0,
                resume: bool = True, accum: int = 1,
                deadline_s: float | None = None, verbose: bool = True,
-               device="cuda"):
+               device="cuda", mesh=None):
     """Train `cfg` from `init_params(seed=seed)` (or the latest checkpoint
     in `ckpt_dir`, continuing from its step) to step `steps` on the
     batches of `TokenStream(vocab, seq_len, global_batch, seed + 1)`.
     Checkpoints every `save_every` steps, at the last step, and at the
     step where SIGTERM/SIGUSR1 arrived (then stops). Returns (params,
     optimizer state, history: one dict a step with its loss and the
-    monitor's stats)."""
-    dev = resolve_device(device)
-    ctx = model_ctx(seq_len)
+    monitor's stats).
+
+    With `mesh` every rank calls it alike: the state is placed on the
+    mesh (`place_state`) and `device` is ignored for the mesh's own."""
+    dev = on_device(mesh) if mesh is not None else resolve_device(device)
+    ctx = model_ctx(seq_len, mesh)
     opt_cfg = AdamConfig(lr=lr, weight_decay=0.01, compress=cfg.opt_compress)
     stream = TokenStream(cfg.vocab, seq_len, global_batch, seed=seed + 1)
 
@@ -141,13 +183,18 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start_step = 0
+    host = None if mesh is None else "cpu"
     if manager and resume and manager.latest_step() is not None:
-        params, opt_state, start_step = _restore(manager, cfg, opt_cfg, dev)
+        params, opt_state, start_step = _restore(
+            manager, cfg, opt_cfg, dev if host is None else None)
         if verbose:
             print(f"resumed from step {start_step}", flush=True)
     else:
         params, opt_state = ST.init_train_state(cfg, seed, opt_cfg,
-                                                device=dev)
+                                                device=host or dev)
+    if mesh is not None:
+        params, opt_state = place_state(params, opt_state, cfg, opt_cfg,
+                                        mesh)
 
     step_fn = ST.make_train_step(cfg, ctx, accum=accum, opt_cfg=opt_cfg)
     monitor = StepMonitor(deadline_s=deadline_s)
@@ -157,6 +204,8 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
         for step in range(start_step, steps):
             monitor.start_step()
             batch = step_batch(cfg, stream, seed, step, dev)
+            if mesh is not None:
+                batch = place_batch(cfg, batch, mesh)
             with deterministic(dev):
                 params, opt_state, metrics = step_fn(params, opt_state,
                                                      batch)
@@ -186,6 +235,10 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
         preempt.restore()
         if manager:
             manager.wait()
+    if manager and mesh is not None:
+        # rank 0 wrote the checkpoints: every rank returns once they are
+        # on disk, so a restart on any rank finds them
+        torch.distributed.barrier()
     return params, opt_state, history
 
 

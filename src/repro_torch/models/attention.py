@@ -19,9 +19,19 @@ and its decode recomputes the per-head keys and values from the whole
 c_kv cache each step, as the JAX package does; its scores multiply by
 1/sqrt(nope + rope dims) in prefill and decode alike. Cross-attention
 (whisper's decoder) reads the encoder's K/V through the same chunked
-attention, unmasked. The sequence-sharded flash decode
-(`gqa_decode_flash`, a `shard_map` that never runs on one device) waits
-for the mesh level (ROADMAP.md queue 1 item 3).
+attention, unmasked.
+
+On a mesh (`ctx.mesh`; the parameters and activations are DTensors) the
+projections are DTensor matmuls, which keep each weight's tensor-parallel
+shard, and the rest runs on each rank's own heads (`common.local_call`,
+the JAX package's per-shard view): the heads split over the "model" axis
+where both the query and the key/value heads divide it, else every rank
+computes all heads. Decode writes the new K/V only on the rank whose
+shard holds `pos` (`common.write_at`) and attends over the cache gathered
+along the sequence, or, with `ctx.opt_flash_decode` on a cache sharded
+over the sequence, by the sequence-parallel flash decode
+(`gqa_decode_flash`: each rank's partial attention over its slice of the
+sequence, combined by log-sum-exp across the "model" ranks).
 
 Training (`gqa_train`, `mla_train`) runs the prefill's chunked attention
 under autograd: the masked scores are `torch.where`'s `NEG_INF`, so a
@@ -32,9 +42,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamDesc, apply_rope, rms_norm
+from repro_torch.models.common import (ParamDesc, apply_rope, constrain,
+                                       dp_part, local_call, on_mesh,
+                                       rms_norm, write_at)
 
 NEG_INF = -1e30
 
@@ -65,21 +78,57 @@ def gqa_desc(cfg: ModelConfig) -> dict:
     return p
 
 
-def _qkv(p, x, cfg: ModelConfig, positions, rope: bool = True):
-    b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+def _proj(p, x, cfg: ModelConfig):
+    """The q, k, v projections [B, S, heads * hd] (biases added)."""
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    return q, k, v
+
+
+def _heads(q, k, v, cfg: ModelConfig, positions, rope: bool = True):
+    """[B, S, heads * hd] projections as [B, S, heads, hd], rotated; the
+    head counts are the tensors' own (a rank's share on a mesh)."""
+    b, s, _ = q.shape
+    hd = cfg.hd
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _qkv(p, x, cfg: ModelConfig, positions, rope: bool = True):
+    return _heads(*_proj(p, x, cfg), cfg, positions, rope)
+
+
+def heads_part(ctx, n_heads: int, n_kv: int):
+    """The head dimension's spec entry on a mesh: the "model" axis where
+    both head counts divide it, else None (every rank computes every
+    head, as does one device)."""
+    if not on_mesh(ctx):
+        return None
+    t = ctx.tp_size
+    return ctx.tp_axis if t > 1 and n_heads % t == 0 and n_kv % t == 0 \
+        else None
+
+
+def _shard_heads(x, ctx, head_dim_idx: int):
+    """Pin an attention tensor when `opt_acts` is on: batch over the data
+    axes, heads over TP when divisible, else replicated over TP (the JAX
+    package's guard against partial sums of the score einsum over a
+    sharded head_dim)."""
+    if not on_mesh(ctx) or not ctx.opt_acts:
+        return x
+    parts = [None] * x.ndim
+    parts[0] = dp_part(ctx)
+    if x.shape[head_dim_idx] % ctx.tp_size == 0:
+        parts[head_dim_idx] = ctx.tp_axis
+    return constrain(x, ctx, *parts)
 
 
 def _scores(q, k):
@@ -117,26 +166,37 @@ def _attend_chunked(q, k, v, *, causal: bool, window: int, q_offset: int,
     return torch.cat(outs, dim=1).reshape(b, s, h, hd)
 
 
+def _gqa_full(p, x, cfg: ModelConfig, positions, *, causal: bool, qc: int,
+              ctx):
+    """Full-sequence attention: (y, k, v). On a mesh each rank attends
+    with its own heads; off it `local_call` is the body itself."""
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+
+    def body(q, k, v):
+        q, k, v = _heads(q, k, v, cfg, positions)
+        out = _attend_chunked(q, k, v, causal=causal,
+                              window=cfg.sliding_window, q_offset=0, qc=qc,
+                              n_rep=n_rep)
+        return out.reshape(out.shape[0], out.shape[1], -1), k, v
+
+    dp, hp = dp_part(ctx), heads_part(ctx, cfg.n_heads, cfg.n_kv_heads)
+    flat, four = (dp, None, hp), (dp, None, hp, None)
+    out, k, v = local_call(ctx, body, list(_proj(p, x, cfg)), [flat] * 3,
+                           [flat, four, four])
+    return out @ p["wo"], _shard_heads(k, ctx, 2), _shard_heads(v, ctx, 2)
+
+
 def gqa_train(p, x, cfg: ModelConfig, positions, *, causal=True,
-              qc: int = 1024):
+              qc: int = 1024, ctx=None):
     """Full-sequence attention without a cache: the training forward's,
     and the encoder's (`causal=False`)."""
-    b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
-    out = _attend_chunked(q, k, v, causal=causal, window=cfg.sliding_window,
-                          q_offset=0, qc=qc,
-                          n_rep=cfg.n_heads // cfg.n_kv_heads)
-    return out.reshape(b, s, -1) @ p["wo"]
+    return _gqa_full(p, x, cfg, positions, causal=causal, qc=qc, ctx=ctx)[0]
 
 
-def gqa_prefill(p, x, cfg: ModelConfig, positions, *, qc: int = 256):
+def gqa_prefill(p, x, cfg: ModelConfig, positions, *, qc: int = 256,
+                ctx=None):
     """Returns (y, cache{k,v})."""
-    b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
-    out = _attend_chunked(q, k, v, causal=True, window=cfg.sliding_window,
-                          q_offset=0, qc=qc,
-                          n_rep=cfg.n_heads // cfg.n_kv_heads)
-    y = out.reshape(b, s, -1) @ p["wo"]
+    y, k, v = _gqa_full(p, x, cfg, positions, causal=True, qc=qc, ctx=ctx)
     return y, {"k": k, "v": v}
 
 
@@ -148,33 +208,106 @@ def _check_pos(pos: int, t: int) -> int:
     return pos
 
 
-def gqa_decode(p, x, cache, cfg: ModelConfig, pos: int):
-    """x [B,1,D]; cache k/v [B,S,KV,hd]; pos: the current length (an int).
-
-    Writes the new K/V at `pos` into the cache **in place** (the JAX
-    package's `dynamic_update_slice` returns a new array; the port's
-    caller owns the one preallocated cache) and attends over positions
-    <= pos. Returns (y [B,1,D], the cache)."""
-    b = x.shape[0]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    t = cache["k"].shape[1]
-    pos = _check_pos(pos, t)
-    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-    q, knew, vnew = _qkv(p, x, cfg, positions)
-    k, v = cache["k"], cache["v"]
-    k[:, pos:pos + 1] = knew
-    v[:, pos:pos + 1] = vnew
-    qr = q.reshape(b, 1, kv, h // kv, hd)
+def _decode_attend(q, k, v, cfg: ModelConfig, pos: int):
+    """One query position q [B,1,H,hd] against the cache k/v [B,T,KV,hd]
+    over positions <= pos (and inside the window): [B,1,H*hd]."""
+    b, hd = q.shape[0], cfg.hd
+    t = k.shape[1]
+    qr = q.reshape(b, 1, k.shape[2], -1, hd)
     # an fp32 divisor; on the card PyTorch may multiply by its reciprocal
     # instead, the same value when hd is a power of 4 (qwen2's 64)
     scores = _scores(qr, k) / float(np.sqrt(np.float32(hd)))
-    kpos = torch.arange(t, device=x.device)
+    kpos = torch.arange(t, device=q.device)
     mask = kpos <= pos
     if cfg.sliding_window > 0:
         mask &= kpos > pos - cfg.sliding_window
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bgrqt,btgh->bqgrh", probs, v).reshape(b, 1, -1)
+    return torch.einsum("bgrqt,btgh->bqgrh", probs, v).reshape(b, 1, -1)
+
+
+def _decode_qkv(p, x, cfg: ModelConfig, pos: int, ctx):
+    """The step's rotated q, k, v [B,1,heads,hd]; on a mesh replicated
+    over "model" (every rank holds every head)."""
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    dp = dp_part(ctx)
+    return local_call(ctx, lambda q, k, v: _heads(q, k, v, cfg, positions),
+                      list(_proj(p, x, cfg)), [(dp, None, None)] * 3,
+                      [(dp, None, None, None)] * 3)
+
+
+def gqa_decode(p, x, cache, cfg: ModelConfig, pos: int, ctx=None):
+    """x [B,1,D]; cache k/v [B,S,KV,hd]; pos: the current length (an int).
+
+    Writes the new K/V at `pos` into the cache **in place** (the JAX
+    package's `dynamic_update_slice` returns a new array; the port's
+    caller owns the one preallocated cache) and attends over positions
+    <= pos. Returns (y [B,1,D], the cache). On a mesh the write lands on
+    the rank holding `pos` and the attention reads the cache gathered
+    over "model" (what the JAX package's partitioner does with a
+    sequence-sharded cache)."""
+    pos = _check_pos(pos, cache["k"].shape[1])
+    q, knew, vnew = _decode_qkv(p, x, cfg, pos, ctx)
+    k, v = cache["k"], cache["v"]
+    write_at(k, knew, 1, pos)
+    write_at(v, vnew, 1, pos)
+    dp = dp_part(ctx)
+    out = local_call(ctx, lambda q, k, v: _decode_attend(q, k, v, cfg, pos),
+                     [q, k, v], [(dp, None, None, None)] * 3, (dp, None, None))
+    return out @ p["wo"], {"k": k, "v": v}
+
+
+def _all_reduce(t, op: str, group):
+    out = funcol.all_reduce(t, op, group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+def gqa_decode_flash(p, x, cache, cfg: ModelConfig, pos: int, ctx):
+    """`gqa_decode` for a cache sharded over "model" along the sequence
+    (P(dp, "model", None, None)): each rank attends over its slice of
+    the sequence and the partial results combine by log-sum-exp, a max
+    then two sums over the "model" ranks, [B, KV, R, hd]-sized, where
+    gathering the cache would move all of it every step. The new K/V is
+    written on the rank whose slice holds `pos`. Returns (y [B,1,D], the
+    cache)."""
+    pos = _check_pos(pos, cache["k"].shape[1])
+    q, knew, vnew = _decode_qkv(p, x, cfg, pos, ctx)
+    k, v = cache["k"], cache["v"]
+    write_at(k, knew, 1, pos)
+    write_at(v, vnew, 1, pos)
+    mesh, tp, hd = ctx.mesh, ctx.tp_axis, cfg.hd
+    group = (mesh, mesh.mesh_dim_names.index(tp))
+    scale = float(np.sqrt(np.float32(hd)))
+
+    def core(qs, ks, vs):
+        b, s_l, kvh = ks.shape[0], ks.shape[1], ks.shape[2]
+        qr = qs.reshape(b, kvh, -1, hd)
+        kpos = torch.arange(s_l, device=ks.device) + \
+            mesh.get_local_rank(tp) * s_l
+        scores = torch.einsum("bgrh,btgh->bgrt", qr.float(),
+                              ks.float()) / scale
+        mask = kpos <= pos
+        if cfg.sliding_window > 0:
+            mask &= kpos > pos - cfg.sliding_window
+        scores = torch.where(mask, scores, NEG_INF)
+        m_loc = torch.amax(scores, dim=-1)                     # [B,KV,R]
+        e = torch.exp(scores - m_loc[..., None])
+        l_loc = torch.sum(e, dim=-1)
+        o_loc = torch.einsum("bgrt,btgh->bgrh", e.to(vs.dtype), vs)
+        # log-sum-exp combine across the sequence shards
+        m_glob = _all_reduce(m_loc, "max", group)
+        corr = torch.exp(m_loc - m_glob)
+        l_glob = _all_reduce(l_loc * corr, "sum", group)
+        o_glob = _all_reduce(o_loc * corr[..., None].to(vs.dtype), "sum",
+                             group)
+        out = o_glob / torch.clamp(l_glob, min=1e-30)[..., None].to(vs.dtype)
+        return out.reshape(b, 1, -1)
+
+    dp = dp_part(ctx)
+    seq = (dp, tp, None, None)
+    out = local_call(ctx, core, [q, k, v], [(dp, None, None, None), seq, seq],
+                     (dp, None, None))
     return out @ p["wo"], {"k": k, "v": v}
 
 
@@ -201,16 +334,23 @@ def mla_desc(cfg: ModelConfig) -> dict:
     }
 
 
-def _mla_qkv(p, x, cfg: ModelConfig, positions):
-    b, s, _ = x.shape
-    h, rd = cfg.n_heads, cfg.mla_rope_dim
-    q = (x @ p["wq"]).reshape(b, s, h, MLA_NOPE + rd)
+def _mla_proj(p, x, cfg: ModelConfig):
+    """q [B,S,H*(nope+rd)], c_kv [B,S,r] (normed) and the unrotated rope
+    key [B,S,rd]."""
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    return x @ p["wq"], c_kv, x @ p["w_kr"]
+
+
+def _mla_rope(q, kr, cfg: ModelConfig, positions):
+    """(q_c [B,S,H,nope], rotated q_r [B,S,H,rd], rotated k_r [B,S,rd])
+    from the projections; H is the tensor's own (a rank's share on a
+    mesh)."""
+    b, s, _ = q.shape
+    q = q.reshape(b, s, -1, MLA_NOPE + cfg.mla_rope_dim)
     q_c, q_r = q[..., :MLA_NOPE], q[..., MLA_NOPE:]
     q_r = apply_rope(q_r, positions, cfg.rope_theta)
-    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)  # [B,S,r]
-    k_r = apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
-                     cfg.rope_theta)[:, :, 0]                    # [B,S,rd]
-    return q_c, q_r, c_kv, k_r
+    k_r = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_c, q_r, k_r
 
 
 def _mla_scale(cfg: ModelConfig) -> float:
@@ -219,12 +359,9 @@ def _mla_scale(cfg: ModelConfig) -> float:
                                                       + cfg.mla_rope_dim)))
 
 
-def _mla_kv(p, c_kv, cfg: ModelConfig):
-    """The per-head keys [B,T,H,nope] and values [B,T,H,v] from c_kv."""
-    b, t, _ = c_kv.shape
-    k_c = (c_kv @ p["w_uk"]).reshape(b, t, cfg.n_heads, MLA_NOPE)
-    v = (c_kv @ p["w_uv"]).reshape(b, t, cfg.n_heads, MLA_V)
-    return k_c, v
+def _mla_kv(p, c_kv):
+    """The per-head keys [B,T,H*nope] and values [B,T,H*v] from c_kv."""
+    return c_kv @ p["w_uk"], c_kv @ p["w_uv"]
 
 
 def _mla_scores(q_c, q_r, k_c32, k_r32, scale: float):
@@ -235,11 +372,14 @@ def _mla_scores(q_c, q_r, k_c32, k_r32, scale: float):
     return (s1 + s2) * scale
 
 
-def _mla_attend(p, q_c, q_r, c_kv, k_r, cfg: ModelConfig, *, causal: bool,
-                q_offset: int, qc: int):
+def _mla_core(q_c, q_r, k_c, v, k_r, cfg: ModelConfig, *, causal: bool,
+              q_offset: int, qc: int):
+    """Chunked MLA attention of q_c/q_r [B,S,H,*] over k_c [B,T,H*nope],
+    v [B,T,H*v] and k_r [B,T,rd]: [B,S,H*v]."""
     b, s, h, _ = q_c.shape
-    t = c_kv.shape[1]
-    k_c, v = _mla_kv(p, c_kv, cfg)
+    t = k_c.shape[1]
+    k_c = k_c.reshape(b, t, h, MLA_NOPE)
+    v = v.reshape(b, t, h, MLA_V)
     k_c32, k_r32 = k_c.float(), k_r.float()
     scale = _mla_scale(cfg)
     qc = pick_qc(s, qc)
@@ -254,43 +394,78 @@ def _mla_attend(p, q_c, q_r, c_kv, k_r, cfg: ModelConfig, *, causal: bool,
                                  NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bhqt,bthd->bqhd", probs, v))
-    out = torch.cat(outs, dim=1).reshape(b, s, h * MLA_V)
-    return out @ p["wo"]
+    return torch.cat(outs, dim=1).reshape(b, s, h * MLA_V)
 
 
-def mla_train(p, x, cfg: ModelConfig, positions, *, qc: int = 1024):
-    q_c, q_r, c_kv, k_r = _mla_qkv(p, x, cfg, positions)
-    return _mla_attend(p, q_c, q_r, c_kv, k_r, cfg, causal=True,
-                       q_offset=0, qc=qc)
+def _mla_full(p, x, cfg: ModelConfig, positions, *, qc: int, ctx):
+    """Causal MLA over the sequence: (y, c_kv, rotated k_r). On a mesh
+    each rank attends with its own heads (every head where the head
+    count does not divide "model")."""
+    q, c_kv, kr = _mla_proj(p, x, cfg)
+    k_c, v = _mla_kv(p, c_kv)
+
+    def body(q, kr, k_c, v):
+        q_c, q_r, k_r = _mla_rope(q, kr, cfg, positions)
+        return _mla_core(q_c, q_r, k_c, v, k_r, cfg, causal=True,
+                         q_offset=0, qc=qc), k_r
+
+    dp, hp = dp_part(ctx), heads_part(ctx, cfg.n_heads, cfg.n_heads)
+    heads, rep = (dp, None, hp), (dp, None, None)
+    out, k_r = local_call(ctx, body, [q, kr, k_c, v],
+                          [heads, rep, heads, heads], [heads, rep],
+                          vary=() if hp is None else (ctx.tp_axis,))
+    return out @ p["wo"], c_kv, k_r
 
 
-def mla_prefill(p, x, cfg: ModelConfig, positions, *, qc: int = 256):
+def mla_train(p, x, cfg: ModelConfig, positions, *, qc: int = 1024,
+              ctx=None):
+    return _mla_full(p, x, cfg, positions, qc=qc, ctx=ctx)[0]
+
+
+def mla_prefill(p, x, cfg: ModelConfig, positions, *, qc: int = 256,
+                ctx=None):
     """Returns (y, cache{c_kv [B,S,r], k_r [B,S,rd]})."""
-    q_c, q_r, c_kv, k_r = _mla_qkv(p, x, cfg, positions)
-    y = _mla_attend(p, q_c, q_r, c_kv, k_r, cfg, causal=True, q_offset=0,
-                    qc=qc)
+    y, c_kv, k_r = _mla_full(p, x, cfg, positions, qc=qc, ctx=ctx)
     return y, {"c_kv": c_kv, "k_r": k_r}
 
 
-def mla_decode(p, x, cache, cfg: ModelConfig, pos: int):
+def _mla_decode_attend(q_c, q_r, k_c, v, k_r, cfg: ModelConfig, pos: int):
+    """One query position against the whole cache: [B,1,H*v]."""
+    b, _, h, _ = q_c.shape
+    t = k_c.shape[1]
+    k_c = k_c.reshape(b, t, h, MLA_NOPE)
+    v = v.reshape(b, t, h, MLA_V)
+    scores = _mla_scores(q_c, q_r, k_c.float(), k_r.float(), _mla_scale(cfg))
+    mask = torch.arange(t, device=q_c.device) <= pos
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqt,bthd->bqhd", probs, v).reshape(b, 1, -1)
+
+
+def mla_decode(p, x, cache, cfg: ModelConfig, pos: int, ctx=None):
     """x [B,1,D]; cache c_kv [B,S,r] and k_r [B,S,rd]; pos an int. Writes
     the step's c_kv and k_r at `pos` in place, then recomputes the keys
     and values from the whole c_kv cache (the JAX package's form; the
-    absorbed form rounds otherwise). Returns (y [B,1,D], the cache)."""
-    b = x.shape[0]
+    absorbed form rounds otherwise). Returns (y [B,1,D], the cache). On a
+    mesh the write lands on the rank holding `pos`, and the attention
+    reads the cache gathered over "model" with every head on every
+    rank."""
     pos = _check_pos(pos, cache["c_kv"].shape[1])
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-    q_c, q_r, c_new, kr_new = _mla_qkv(p, x, cfg, positions)
+    q, c_new, kr = _mla_proj(p, x, cfg)
     c_kv, k_r = cache["c_kv"], cache["k_r"]
-    c_kv[:, pos:pos + 1] = c_new
-    k_r[:, pos:pos + 1] = kr_new
-    t = c_kv.shape[1]
-    k_c, v = _mla_kv(p, c_kv, cfg)
-    scores = _mla_scores(q_c, q_r, k_c.float(), k_r.float(), _mla_scale(cfg))
-    mask = torch.arange(t, device=x.device) <= pos
-    scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqt,bthd->bqhd", probs, v).reshape(b, 1, -1)
+    dp = dp_part(ctx)
+    rep3, rep4 = (dp, None, None), (dp, None, None, None)
+    q_c, q_r, kr_new = local_call(
+        ctx, lambda q, kr: _mla_rope(q, kr, cfg, positions), [q, kr],
+        [rep3, rep3], [rep4, rep4, rep3])
+    write_at(c_kv, c_new, 1, pos)
+    write_at(k_r, kr_new, 1, pos)
+    k_c, v = _mla_kv(p, constrain(c_kv, ctx, *rep3))
+    out = local_call(
+        ctx, lambda q_c, q_r, k_c, v, k_r: _mla_decode_attend(
+            q_c, q_r, k_c, v, k_r, cfg, pos),
+        [q_c, q_r, k_c, v, k_r], [rep4, rep4, rep3, rep3, rep3], rep3)
     return out @ p["wo"], {"c_kv": c_kv, "k_r": k_r}
 
 

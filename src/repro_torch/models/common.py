@@ -2,11 +2,14 @@
 
 Every model declares its parameters as a tree (nested dicts and tuples)
 of `ParamDesc` — shape, dtype, initialisation, and which dimension the
-JAX package shards over its tensor-parallel ("model") and FSDP ("data")
-mesh axes. From one descriptor tree the port derives real initialised
-parameters (`init_params`) and counts (`count_params`); the JAX
-package's `shape_structs` and `partition_specs` describe XLA sharding
-and wait for the mesh level (ROADMAP.md queue 1 item 3).
+tensor-parallel ("model") and FSDP ("data", with "pod") mesh axes shard.
+From one descriptor tree the port derives real initialised parameters
+(`init_params`), counts (`count_params`), meta-device stand-ins
+(`shape_structs`) and partition specs (`partition_specs`): one
+`PartitionSpec` a leaf, a tuple with an axis name, a tuple of axis names
+or None for each dimension, as the JAX package's. `placements` turns a
+spec into a `DeviceMesh`'s DTensor placements and `distribute` places a
+tensor by it.
 
 `params_from_numpy` carries the JAX package's parameters across: both
 packages' trees have the same keys, the layers stacked `[L, ...]`.
@@ -32,11 +35,24 @@ from repro_torch.ann.index import resolve_device
 class ParamDesc:
     shape: tuple
     dtype: Any = torch.float32
-    tp: int | None = None       # dim the JAX package shards over "model"
-    fsdp: int | None = None     # dim the JAX package shards over "data"
+    tp: int | None = None       # dim sharded over the "model" axis
+    fsdp: int | None = None     # dim sharded over the data(+pod) axes
     scale: float | None = None  # init std; default fan-in
     zero: bool = False          # zero-init (biases, norm offsets...)
     one: bool = False           # ones-init (norm scales)
+
+
+class PartitionSpec(tuple):
+    """One entry a tensor dimension: a mesh axis name, a tuple of names
+    (the dimension sharded over each, the first outermost), or None
+    (replicated). A leaf of the port's trees, as the JAX package's
+    `PartitionSpec`, whose contents it equals."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
 
 
 def is_desc(x) -> bool:
@@ -45,7 +61,10 @@ def is_desc(x) -> bool:
 
 def map_descs(fn, tree):
     """`fn` over every leaf of a tree of dicts and tuples (a leaf is
-    anything else: a `ParamDesc`, a tensor, an array)."""
+    anything else: a `ParamDesc`, a `PartitionSpec`, a tensor, an
+    array)."""
+    if isinstance(tree, PartitionSpec):
+        return fn(tree)
     if isinstance(tree, dict):
         return {k: map_descs(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -56,6 +75,8 @@ def map_descs(fn, tree):
 def tree_leaves(tree) -> list:
     """The leaves in `jax.tree.flatten`'s order: dict keys sorted, tuple
     and list items in order."""
+    if isinstance(tree, PartitionSpec):
+        return [tree]
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
@@ -66,6 +87,8 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(tree, leaves):
     """`tree`'s structure with `leaves` (an iterator, in `tree_leaves`
     order) in place of its leaves."""
+    if isinstance(tree, PartitionSpec):
+        return next(leaves)
     if isinstance(tree, dict):
         filled = {k: tree_unflatten(tree[k], leaves) for k in sorted(tree)}
         return {k: filled[k] for k in tree}
@@ -132,6 +155,193 @@ def params_from_numpy(tree, device="cuda"):
         return t.to(dev)
 
     return map_descs(one, tree)
+
+
+def shape_structs(tree, dtype=None):
+    """Each descriptor as an empty tensor of its shape and dtype (or
+    `dtype`) on the `meta` device: no memory is allocated."""
+    return map_descs(lambda d: torch.empty(
+        d.shape, dtype=_torch_dtype(dtype or d.dtype), device="meta"), tree)
+
+
+def partition_specs(tree, *, tp_axis="model", tp_size: int,
+                    fsdp_axes=(), fsdp_size: int = 1):
+    """PartitionSpecs honouring divisibility (falls back to replication):
+    a leaf's `tp` dimension over `tp_axis` where `tp_size` divides it,
+    then its `fsdp` dimension over `fsdp_axes` where `fsdp_size` divides
+    it and `tp` did not take it."""
+
+    def spec(d: ParamDesc):
+        parts = [None] * len(d.shape)
+        if d.tp is not None and tp_size > 1 and d.shape[d.tp] % tp_size == 0:
+            parts[d.tp] = tp_axis
+        if (d.fsdp is not None and fsdp_axes and fsdp_size > 1
+                and d.fsdp != d.tp and parts[d.fsdp] is None
+                and d.shape[d.fsdp] % fsdp_size == 0):
+            parts[d.fsdp] = fsdp_axes if len(fsdp_axes) > 1 else fsdp_axes[0]
+        return PartitionSpec(*parts)
+
+    return map_descs(spec, tree)
+
+
+def placements(spec, mesh) -> tuple:
+    """DTensor placements of `spec` on `mesh`: `Shard(d)` on each mesh
+    dimension that the spec names for tensor dimension d, `Replicate()`
+    on the others. A dimension named with several axes is sharded over
+    each, in the mesh's order of those axes (the JAX package's order
+    when the spec lists them as the mesh does). A spec naming an axis
+    the mesh lacks raises ValueError."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    out = [Replicate()] * len(names)
+    for d, part in enumerate(spec):
+        if part is None:
+            continue
+        for ax in (part if isinstance(part, tuple) else (part,)):
+            if ax not in names:
+                raise ValueError(f"spec {spec} names axis {ax!r}; the mesh "
+                                 f"has {names}")
+            out[names.index(ax)] = Shard(d)
+    return tuple(out)
+
+
+def distribute(t, spec, mesh):
+    """`t` (the same full tensor on every rank, on any device) as a
+    DTensor on `mesh`, sharded by `spec`: each rank copies only its own
+    shard to its device (a copy even where the shard is all of `t` on
+    that device), and no collective runs."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    place = placements(spec, mesh)
+    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh,
+                                                          place)
+    local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    local = local.to(device=dev, memory_format=torch.contiguous_format,
+                     copy=True)
+    return DTensor.from_local(local, mesh, place,
+                              run_check=False, shape=t.shape,
+                              stride=t.new_empty(t.shape,
+                                                 device="meta").stride())
+
+
+# ---- mesh layouts -----------------------------------------------------------
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def on_mesh(ctx) -> bool:
+    """Whether `ctx` (a `ModelCtx` or None) carries a mesh."""
+    return ctx is not None and getattr(ctx, "mesh", None) is not None
+
+
+def dp_part(ctx):
+    """The batch dimension's spec entry: the data axis, or the tuple of
+    data axes on a multi-pod mesh; None off a mesh."""
+    if not on_mesh(ctx):
+        return None
+    return ctx.dp_axes if len(ctx.dp_axes) > 1 else ctx.dp_axes[0]
+
+
+def to_placements(x, place):
+    """DTensor `x` redistributed to `place` (returned as it is when it
+    has them). A mesh dimension that moves a shard from one tensor
+    dimension to another goes through `Replicate()` (an all-gather, then
+    a local slice) instead of an all-to-all."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    place = tuple(place)
+    cur = tuple(x.placements)
+    if cur == place:
+        return x
+    mid = tuple(Replicate() if isinstance(c, Shard) and isinstance(t, Shard)
+                and c.dim != t.dim else c for c, t in zip(cur, place))
+    if mid != cur:
+        x = x.redistribute(x.device_mesh, mid)
+    return x.redistribute(x.device_mesh, place)
+
+
+def constrain(x, ctx, *parts):
+    """`x` laid out as `PartitionSpec(*parts)` on `ctx.mesh` (the JAX
+    package's `with_sharding_constraint`); a tensor off the mesh is
+    returned as it is."""
+    if not on_mesh(ctx) or not is_dtensor(x):
+        return x
+    return to_placements(x, placements(PartitionSpec(*parts), ctx.mesh))
+
+
+def shard_act(x, ctx, *, tp_last: bool = False):
+    """An activation constrained to P(dp, None, ...) when `ctx.opt_acts`
+    is on, its last dimension over "model" too with `tp_last` where it
+    divides; `x` itself otherwise."""
+    if not on_mesh(ctx) or not ctx.opt_acts:
+        return x
+    spec = [dp_part(ctx)] + [None] * (x.ndim - 1)
+    if tp_last and x.shape[-1] % ctx.tp_size == 0:
+        spec[-1] = ctx.tp_axis
+    return constrain(x, ctx, *spec)
+
+
+def local_call(ctx, body, ins, in_parts, out_parts, *, vary=()):
+    """`body` on each rank's shards (the JAX package's `shard_map`): each
+    input in `ins` laid out as its spec in `in_parts` and passed as its
+    local tensor, each output taken as this rank's shard of its spec in
+    `out_parts` (one spec, or a list of specs for a tuple of outputs).
+    Off the mesh, `body(*ins)`.
+
+    Gradients: an input replicated along a mesh axis gets the same
+    gradient on every rank of it, right where the body's work is the same
+    on every rank of that axis. `vary` names the axes along which the
+    body's work differs although an input is replicated along them (its
+    outputs are then sharded along each, as a stacked leading dimension
+    where the JAX package would `psum` or `pmean`): such an input's
+    gradient is the sum over the ranks of those axes."""
+    if not on_mesh(ctx):
+        return body(*ins)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ctx.mesh
+    ins = [constrain(t, ctx, *sp) for t, sp in zip(ins, in_parts)]
+    # one tensor's placements are a list, several tensors' a tuple of them
+    place = lambda sp: list(placements(PartitionSpec(*sp), mesh))
+    in_pl = tuple(place(sp) for sp in in_parts)
+    names = mesh.mesh_dim_names
+    grad_pl = tuple(
+        [Partial() if isinstance(p, Replicate) and names[d] in vary else p
+         for d, p in enumerate(pl)] for pl in in_pl)
+    out_pl = (tuple(place(sp) for sp in out_parts)
+              if isinstance(out_parts, list) else place(out_parts))
+    return local_map(body, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh)(*ins)
+
+
+def write_at(cache, new, dim: int, pos: int) -> None:
+    """Writes `new` (size 1 along `dim`) into `cache` at `pos` along
+    `dim`, in place. On a mesh only the rank whose shard holds `pos`
+    writes; `new` is first laid out as the cache is, replicated along
+    `dim`."""
+    if not is_dtensor(cache):
+        cache.narrow(dim, pos, 1).copy_(new)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+                 else p for p in cache.placements)
+    new = to_placements(new, want).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    if offset[dim] <= pos < offset[dim] + shape[dim]:
+        cache.to_local().narrow(dim, pos - offset[dim], 1).copy_(new)
 
 
 def count_params(tree) -> int:

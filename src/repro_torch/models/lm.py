@@ -25,12 +25,24 @@ call. The port's forwards call `cast_floats` too, which returns a leaf
 already in that dtype as it is; `launch.serve.generate` casts once
 before prefill, which gives the same values, so the decode loop moves no
 cast (at qwen2-0.5b's full width each would be 3.8 GB of traffic).
-Training (`forward_train`) waits for ROADMAP.md queue 1 item 2c.
+
+On a mesh (`ModelCtx.mesh`, a `DeviceMesh` with a "model" axis and data
+axes) the parameters are DTensors placed by their partition specs and
+the token batches are sharded over the data axes; the forwards run under
+DTensor's `implicit_replication` (plain tensors such as positions and
+masks count as replicated), keep the residual stream batch-sharded and
+replicated over "model", and run the attention, the embedding lookup and
+the MoE layer on each rank's shards. The dense decoders and the MoE and
+MLA families (grok-1, deepseek-v2) run there; the recurrent and
+encoder-decoder families (xLSTM, Hymba, whisper) raise
+NotImplementedError on a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -40,19 +52,106 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.models.common import ParamDesc, cast_floats, map_descs, \
-    rms_norm
+from repro_torch.models.common import (ParamDesc, cast_floats, constrain,
+                                       dp_part, is_dtensor, local_call,
+                                       map_descs, on_mesh, rms_norm,
+                                       shard_act, to_placements)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelCtx:
-    """Execution context on one device: the chunking knobs. The JAX
-    package's mesh fields (mesh, axis names and sizes, and the
-    sharding options) wait for the mesh level (ROADMAP.md queue 1 item
-    3)."""
+    """Execution context: mesh + axis names + chunking knobs. `mesh` None
+    runs on one device."""
+    mesh: Any = None
+    tp_axis: str = "model"
+    dp_axes: tuple = ("data",)
+    tp_size: int = 1
+    dp_size: int = 1
     qc_train: int = 1024
     qc_prefill: int = 256
     gla_chunk: int = 256
+    # perf knobs, off by default as in the JAX package
+    opt_acts: bool = False         # Megatron-style activation constraints
+    opt_flash_decode: bool = False # sequence-parallel LSE decode
+
+
+def mesh_ctx(mesh, **kw) -> ModelCtx:
+    """The context of `mesh` (its axis names and sizes), with `kw`'s
+    knobs."""
+    from repro_torch.launch.mesh import mesh_axes
+
+    axes = mesh_axes(mesh)
+    return ModelCtx(mesh=mesh, tp_axis=axes.tp_axis, dp_axes=axes.dp_axes,
+                    tp_size=axes.tp_size, dp_size=axes.dp_size, **kw)
+
+
+def mesh_mode(ctx):
+    """DTensor's `implicit_replication` on a mesh (plain tensors mixed
+    with DTensors count as replicated), a no-op off it. The forwards
+    enter it themselves; a caller that differentiates through them on a
+    mesh runs the backward inside it too."""
+    if not on_mesh(ctx):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def _residual(x, ctx: ModelCtx):
+    """The residual stream's layout on a mesh: batch over the data axes,
+    replicated over "model"."""
+    return constrain(x, ctx, dp_part(ctx), None, None)
+
+
+def _unshard(tree, ctx: ModelCtx):
+    """Parameters gathered over the data axes for their use (FSDP's
+    all-gather; the gradient's way back is a reduce-scatter), each
+    keeping its tensor-parallel shard. Off a mesh, the tree itself."""
+    if not on_mesh(ctx):
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    names = ctx.mesh.mesh_dim_names
+    return map_descs(lambda t: to_placements(t, [
+        Replicate() if names[d] in ctx.dp_axes else p
+        for d, p in enumerate(t.placements)]) if is_dtensor(t) else t, tree)
+
+
+def _check_mesh(cfg: ModelConfig, ctx: ModelCtx) -> None:
+    if on_mesh(ctx) and (cfg.encoder_layers or set(layer_kinds(cfg))
+                         - {"attn"}):
+        raise NotImplementedError(
+            f"{cfg.name} on a mesh: the recurrent and encoder-decoder "
+            f"families' mesh forwards come with the next slice, the dry "
+            f"run's (ROADMAP.md queue 1 item 1d)")
+
+
+def _embed(table, tokens, ctx: ModelCtx):
+    """The embedding rows of `tokens`. On a mesh each rank looks its
+    tokens up in its slice of the vocabulary (where the vocabulary
+    divides "model") and the ranks' rows are summed."""
+    if not on_mesh(ctx):
+        return table[tokens.long()]
+    tp, dp = ctx.tp_axis, dp_part(ctx)
+    v = table.shape[0]
+    vt = tp if ctx.tp_size > 1 and v % ctx.tp_size == 0 else None
+
+    def body(tab, tok):
+        tok = tok.long()
+        if vt is None:
+            return tab[tok]
+        lo = ctx.mesh.get_local_rank(tp) * tab.shape[0]
+        mine = (tok >= lo) & (tok < lo + tab.shape[0])
+        rows = tab[torch.where(mine, tok - lo, 0)]
+        return (rows * mine[..., None].to(rows.dtype))[None]
+
+    if vt is None:
+        return local_call(ctx, body, [table, tokens], [(None, None),
+                                                       (dp, None)],
+                          (dp, None, None), vary=ctx.dp_axes)
+    x = local_call(ctx, body, [table, tokens], [(tp, None), (dp, None)],
+                   (tp, dp, None, None), vary=tuple(ctx.dp_axes) + (tp,))
+    return _residual(x.sum(0), ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -226,25 +325,26 @@ def _apply_block(kind: str, lp, x, cfg: ModelConfig, ctx: ModelCtx,
     """Residual block, the JAX package's training math. Returns (x, aux):
     aux the MoE layer's load-balance loss, else 0."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    lp = _unshard(lp, ctx)
     if kind in ("attn", "enc", "dec"):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        h = shard_act(rms_norm(x, lp["ln1"], cfg.norm_eps), ctx)
         if cfg.use_mla:
-            y = A.mla_train(lp["attn"], h, cfg, positions, qc=qc)
+            y = A.mla_train(lp["attn"], h, cfg, positions, qc=qc, ctx=ctx)
         else:
             y = A.gqa_train(lp["attn"], h, cfg, positions,
-                            causal=(kind != "enc"), qc=qc)
-        x = x + y
+                            causal=(kind != "enc"), qc=qc, ctx=ctx)
+        x = _residual(shard_act(x + shard_act(y, ctx), ctx), ctx)
         if kind == "dec":
             h = rms_norm(x, lp["lnx"], cfg.norm_eps)
             x = x + A.cross_attend(lp["cross"], h, enc_kv, cfg, qc=qc)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        h = shard_act(rms_norm(x, lp["ln2"], cfg.norm_eps), ctx)
         if "moe" in lp:
             y, aux = M.moe_apply(lp["moe"], h, cfg, ctx)
         elif kind == "attn":
-            y = M.mlp_apply(lp["mlp"], h)
+            y = M.mlp_apply(lp["mlp"], h, ctx=ctx)
         else:
-            y = M.mlp_apply(lp["mlp"], h, gated=False, act=M.gelu)
-        return x + y, aux
+            y = M.mlp_apply(lp["mlp"], h, gated=False, act=M.gelu, ctx=ctx)
+        return _residual(shard_act(x + shard_act(y, ctx), ctx), ctx), aux
     if kind == "mlstm":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         return x + S.mlstm_train(lp["mlstm"], h, cfg, chunk=ctx.gla_chunk), \
@@ -319,10 +419,16 @@ def forward_train(params, batch, cfg: ModelConfig, ctx: ModelCtx):
     0-d fp32 tensors: the masked mean NLL of the fp32 logits, the summed
     MoE aux loss, the count of unmasked targets; total = loss + 0.01 ·
     aux / n_layers."""
+    _check_mesh(cfg, ctx)
+    with mesh_mode(ctx):
+        return _forward_train(params, batch, cfg, ctx)
+
+
+def _forward_train(params, batch, cfg: ModelConfig, ctx: ModelCtx):
     tokens = batch["tokens"]
     s = tokens.shape[1]
     params = cast_floats(params, getattr(torch, cfg.compute_dtype))
-    x = params["embed"][tokens.long()]
+    x = _embed(params["embed"], tokens, ctx)
     positions = torch.arange(s, device=x.device)
     if cfg.encoder_layers:
         enc_out = _encode(params, batch["enc_inputs"], cfg, ctx)
@@ -331,7 +437,10 @@ def forward_train(params, batch, cfg: ModelConfig, ctx: ModelCtx):
         x, aux = _run_layers(params, x, cfg, ctx, positions,
                              qc=ctx.qc_train)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logp = torch.log_softmax((x @ params["head"]).float(), dim=-1)
+    logits = x @ _unshard(params["head"], ctx)
+    # on a mesh the vocabulary whole on each rank's rows
+    logits = constrain(logits, ctx, dp_part(ctx), None, None)
+    logp = torch.log_softmax(logits.float(), dim=-1)
     targets = batch["targets"].long()
     mask = (targets >= 0).float()
     nll = -torch.gather(logp, -1, torch.clamp(targets, min=0)[..., None]
@@ -351,8 +460,8 @@ def _ffn(lp, x, cfg: ModelConfig, ctx: ModelCtx):
     in serving) or the gated SiLU MLP."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        return x + M.moe_apply(lp["moe"], h, cfg, ctx)[0]
-    return x + M.mlp_apply(lp["mlp"], h)
+        return _residual(x + M.moe_apply(lp["moe"], h, cfg, ctx)[0], ctx)
+    return _residual(x + M.mlp_apply(lp["mlp"], h), ctx)
 
 
 def _ring(c, w: int, s: int, end: int):
@@ -374,6 +483,7 @@ def _prefill_block(kind, lp, x, cfg, ctx, positions, valid, prompt_len,
                    enc_out):
     """One layer of prefill: (x, the layer's cache)."""
     b, s, _ = x.shape
+    lp = _unshard(lp, ctx)
 
     def mask_writes(k, log_f):
         """Zero recurrent writes (k) and freeze decay (f=1) past the
@@ -387,11 +497,11 @@ def _prefill_block(kind, lp, x, cfg, ctx, positions, valid, prompt_len,
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.use_mla:
             y, c = A.mla_prefill(lp["attn"], h, cfg, positions,
-                                 qc=ctx.qc_prefill)
+                                 qc=ctx.qc_prefill, ctx=ctx)
         else:
             y, c = A.gqa_prefill(lp["attn"], h, cfg, positions,
-                                 qc=ctx.qc_prefill)
-        return _ffn(lp, x + y, cfg, ctx), c
+                                 qc=ctx.qc_prefill, ctx=ctx)
+        return _ffn(lp, _residual(x + y, ctx), cfg, ctx), c
     if kind == "dec":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         y, c = A.gqa_prefill(lp["attn"], h, cfg, positions,
@@ -441,11 +551,35 @@ def forward_prefill(params, batch, cfg: ModelConfig, ctx: ModelCtx,
     when the tokens are right-padded to the cache length (see the module
     docstring); None = the whole sequence is real. Returns (logits
     [B, 1, V] fp32, the cache: stacked `[L, ...]` tensors or a tuple of
-    per-layer dicts, as `cache_desc` describes with S_max = S)."""
+    per-layer dicts, as `cache_desc` describes with S_max = S). On a mesh
+    the logits and the cache are DTensors."""
+    _check_mesh(cfg, ctx)
+    with mesh_mode(ctx):
+        return _forward_prefill(params, batch, cfg, ctx, prompt_len)
+
+
+def _stack_layers(ts: list):
+    """[L, ...] from L per-layer tensors; DTensors stacked rank by rank,
+    each keeping its layout (shifted one dimension in)."""
+    if not is_dtensor(ts[0]):
+        return torch.stack(ts)
+    from torch.distributed.tensor import DTensor, Shard
+
+    t0 = ts[0]
+    place = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+                  for p in t0.placements)
+    shape = (len(ts),) + tuple(t0.shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(torch.stack([t.to_local() for t in ts]),
+                              t0.device_mesh, place, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def _forward_prefill(params, batch, cfg, ctx, prompt_len):
     tokens = batch["tokens"]
     b, s = tokens.shape
     params = cast_floats(params, getattr(torch, cfg.compute_dtype))
-    x = params["embed"][tokens.long()]
+    x = _embed(params["embed"], tokens, ctx)
     positions = torch.arange(s, device=x.device)
     prompt_len = None if prompt_len is None else int(prompt_len)
     valid = None if prompt_len is None else positions < prompt_len
@@ -462,7 +596,7 @@ def forward_prefill(params, batch, cfg: ModelConfig, ctx: ModelCtx,
     for i, kind in enumerate(kinds):
         x, c = _prefill_block(kind, _layer(params["layers"], i), x, cfg,
                               ctx, positions, valid, prompt_len, enc_out)
-        if not stacked:
+        if not stacked or on_mesh(ctx):
             caches.append(c)
             continue
         if cache is None:              # one [L, ...] tensor per entry
@@ -471,9 +605,12 @@ def forward_prefill(params, batch, cfg: ModelConfig, ctx: ModelCtx,
                      for name, t in c.items()}
         for name, t in c.items():
             cache[name][i] = t
+    if stacked and on_mesh(ctx):
+        cache = {name: _stack_layers([c[name] for c in caches])
+                 for name in caches[0]}
     last = (s - 1) if prompt_len is None else (prompt_len - 1)
     x = rms_norm(x[:, last:last + 1], params["ln_f"], cfg.norm_eps)
-    logits = (x @ params["head"]).float()
+    logits = (x @ _unshard(params["head"], ctx)).float()
     return logits, (cache if stacked else tuple(caches))
 
 
@@ -506,14 +643,20 @@ def _gqa_decode_ring(p, x, cache, cfg: ModelConfig, pos: int):
 
 def _decode_block(kind, lp, cache, x, cfg, ctx, pos: int):
     """One layer of decode: (x, the layer's new cache entries)."""
+    lp = _unshard(lp, ctx)
     if kind in ("attn", "dec"):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        kv = {"k": cache.get("k"), "v": cache.get("v")}
         if cfg.use_mla:
-            y, c2 = A.mla_decode(lp["attn"], h, cache, cfg, pos)
+            y, c2 = A.mla_decode(lp["attn"], h, cache, cfg, pos, ctx=ctx)
+        elif (ctx.opt_flash_decode and ctx.tp_size > 1
+              and cfg.n_kv_heads % ctx.tp_size != 0
+              and cache["k"].shape[1] % ctx.tp_size == 0):
+            # S-sharded cache: sequence-parallel LSE decode (perf opt)
+            y, c2 = A.gqa_decode_flash(lp["attn"], h, kv, cfg, pos, ctx)
         else:
-            y, c2 = A.gqa_decode(lp["attn"], h, {"k": cache["k"],
-                                                 "v": cache["v"]}, cfg, pos)
-        x = x + y
+            y, c2 = A.gqa_decode(lp["attn"], h, kv, cfg, pos, ctx=ctx)
+        x = _residual(x + y, ctx)
         if kind == "attn":
             return _ffn(lp, x, cfg, ctx), c2
         h = rms_norm(x, lp["lnx"], cfg.norm_eps)
@@ -546,9 +689,17 @@ def forward_decode(params, cache, tokens, pos: int, cfg: ModelConfig,
     """One decode step. tokens [B, 1], pos: the current position (an
     int). Updates `cache` in place: the attention caches are written at
     `pos` (the ring at pos % w), and each recurrent state's new value is
-    copied over the old. Returns (logits [B, 1, V] fp32, the cache)."""
+    copied over the old. Returns (logits [B, 1, V] fp32, the cache). On a
+    mesh the tokens, the logits and the cache are DTensors; each cache
+    write lands on the rank whose shard holds `pos`."""
+    _check_mesh(cfg, ctx)
+    with mesh_mode(ctx):
+        return _forward_decode(params, cache, tokens, pos, cfg, ctx)
+
+
+def _forward_decode(params, cache, tokens, pos, cfg, ctx):
     params = cast_floats(params, getattr(torch, cfg.compute_dtype))
-    x = params["embed"][tokens.long()]
+    x = _embed(params["embed"], tokens, ctx)
     pos = int(pos)
     for i, kind in enumerate(_cache_kinds(cfg)):
         cl = _layer(cache, i)
@@ -558,5 +709,5 @@ def forward_decode(params, cache, tokens, pos: int, cfg: ModelConfig,
             if t is not cl[name]:
                 cl[name].copy_(t)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = (x @ params["head"]).float()
+    logits = (x @ _unshard(params["head"], ctx)).float()
     return logits, cache

@@ -1,11 +1,19 @@
 """Dense MLPs and the Mixture-of-Experts layer.
 
 The gated SiLU MLP of the dense decoders, the ungated GELU MLP of the
-encoder-decoder family, and the MoE layer of grok-1 and deepseek-v2 on
-one device: the JAX package's per-shard body (`_moe_local`) with the
-whole expert set local, so its `shard_map` and its `psum` over the
-tensor-parallel axis fall away (ROADMAP.md queue 1 item 3 brings the
-expert-parallel layout back).
+encoder-decoder family, and the MoE layer of grok-1 and deepseek-v2.
+
+The MoE layer runs the JAX package's per-shard body (`_moe_local`). On
+one device the whole expert set is local. On a mesh (`ctx.mesh`) the body
+runs on each rank (`common.local_call`, the JAX package's `shard_map`):
+tokens are data-sharded and replicated across the tensor-parallel
+("model") axis, and the expert weights split over "model" —
+expert-parallel ([E, ...] split: each rank takes its slice of the slot
+table and fills its rows of the [E, C, D] buffer) where E divides the
+axis, else tensor-parallel inside every expert ([.., F, ..] split).
+Either way each rank computes a partial output and one sum over "model"
+combines them (the JAX package's `psum`); the aux loss is averaged over
+the data ranks (its `pmean`). Capacity counts each rank's own tokens.
 
 Dispatch is gather-based, as in the JAX package: top-k assignment ->
 position-in-expert by cumsum (token-major, slot-minor) -> an int [E, C]
@@ -29,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamDesc
+from repro_torch.models.common import (ParamDesc, constrain, dp_part,
+                                       local_call, on_mesh, shard_act)
 
 
 def gelu(x):
@@ -50,10 +59,10 @@ def mlp_desc(cfg: ModelConfig, d_ff: int | None = None,
     return p
 
 
-def mlp_apply(p, x, *, gated: bool = True, act=F.silu):
+def mlp_apply(p, x, *, gated: bool = True, act=F.silu, ctx=None):
     up = x @ p["w_up"]
     h = act(x @ p["w_gate"]) * up if gated else act(up)
-    return h @ p["w_down"]
+    return shard_act(h, ctx, tp_last=True) @ p["w_down"]
 
 
 # ---------------------------- MoE ----------------------------
@@ -111,19 +120,32 @@ def dispatch(x, wg, cfg: ModelConfig) -> dict:
             "table": table, "onehot": onehot, "cap": cap}
 
 
-def _moe_local(x, wg, w_gate, w_up, w_down, *, cfg: ModelConfig):
-    """The MoE body on one device: x [T, D] -> (y [T, D], aux loss)."""
+def _moe_local(x, wg, w_gate, w_up, w_down, *, cfg: ModelConfig,
+               expert_parallel: bool = False, tp_index: int = 0):
+    """The MoE body on one rank: x [T, D] -> (y [T, D], aux loss).
+
+    The expert weights are the rank's: expert-parallel [E_loc, D, F]
+    (experts tp_index·E_loc onwards), else [E, D, F_loc]; on one device
+    all of them. y is the rank's part of the output (the whole output on
+    one device)."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     g = dispatch(x, wg, cfg)
     table, cap = g["table"], g["cap"]
 
+    e_loc = w_gate.shape[0]
+    if expert_parallel:
+        table = table[tp_index * e_loc:(tp_index + 1) * e_loc]
     occupied = table >= 0
     xin = x[table.clamp(min=0)]                                    # [E, C, D]
     xin = xin * occupied[..., None].to(x.dtype)
     h = F.silu(torch.einsum("ecd,edf->ecf", xin, w_gate)) * \
         torch.einsum("ecd,edf->ecf", xin, w_up)
     out = torch.einsum("ecf,efd->ecd", h, w_down)                  # [E, C, D]
+    if expert_parallel:     # the rank's experts in the full [E, C, D]
+        out = torch.cat([out.new_zeros((tp_index * e_loc, cap, d)), out,
+                         out.new_zeros((e - (tp_index + 1) * e_loc, cap,
+                                        d))])
 
     # combine: route each slot's output back to its token, weighted
     slot_out = out[g["flat_e"], g["slot_pos"].clamp(max=cap - 1)]  # [T*k, D]
@@ -141,11 +163,44 @@ def _moe_local(x, wg, w_gate, w_up, w_down, *, cfg: ModelConfig):
 def moe_apply(p, x, cfg: ModelConfig, ctx=None):
     """x [B, S, D] -> (y, aux_loss): every one of the B·S rows dispatches
     (padded prompt positions too, as in the JAX package), then the
-    shared experts' MLP is added. `ctx` is unused on one device."""
+    shared experts' MLP is added. On a mesh (`ctx.mesh`) each rank
+    dispatches its own rows (see the module docstring)."""
     b, s, d = x.shape
-    y, aux = _moe_local(x.reshape(b * s, d), p["wg"], p["w_gate"],
-                        p["w_up"], p["w_down"], cfg=cfg)
-    y = y.reshape(b, s, d)
+    if on_mesh(ctx):
+        y, aux = _moe_mesh(p, x, cfg, ctx)
+    else:
+        y, aux = _moe_local(x.reshape(b * s, d), p["wg"], p["w_gate"],
+                            p["w_up"], p["w_down"], cfg=cfg)
+        y = y.reshape(b, s, d)
     if cfg.n_shared_experts:
         y = y + mlp_apply(p["shared"], x)
     return y, aux
+
+
+def _moe_mesh(p, x, cfg: ModelConfig, ctx):
+    """The MoE layer over `ctx.mesh`: (y [B, S, D], aux)."""
+    b, s, d = x.shape
+    tp, mesh = ctx.tp_axis, ctx.mesh
+    ep = cfg.n_experts % ctx.tp_size == 0 and ctx.tp_size > 1
+    dp = dp_part(ctx)
+    every = tuple(ctx.dp_axes) + (tp,)
+    xf = constrain(x, ctx, dp, None, None).reshape(b * s, d)
+    if ep:
+        w13 = w2 = (tp, None, None)
+    else:
+        w13, w2 = (None, None, tp), (None, tp, None)
+
+    def body(xl, wg, w_gate, w_up, w_down):
+        y, aux = _moe_local(xl, wg, w_gate, w_up, w_down, cfg=cfg,
+                            expert_parallel=ep,
+                            tp_index=mesh.get_local_rank(tp))
+        return y[None], aux.reshape(1)
+
+    # each rank's partial y stacked over "model", summed; the aux loss
+    # stacked over every rank (the same on the "model" ranks), averaged
+    y, aux = local_call(
+        ctx, body, [xf, p["wg"], p["w_gate"], p["w_up"], p["w_down"]],
+        [(dp, None), (None, None), w13, w13, w2],
+        [(tp, dp, None), (every,)], vary=every)
+    y = constrain(y.sum(0), ctx, dp, None)
+    return y.reshape(b, s, d), aux.mean(0)

@@ -20,6 +20,15 @@ blocks give the same bits sliced or whole.
 The step counter is an int32 0-d tensor on the host, and the bias
 corrections are computed on the host in fp32 (`1 - b^t`, as the JAX
 package computes them), so a step reads nothing back from the card.
+
+On a mesh the parameters, gradients and moments are DTensors with the
+parameters' layouts (`adam_state_desc`'s specs) and each rank updates
+its own shards, the arithmetic being elementwise. The 8-bit blocks lie
+along the last axis: where that axis is sharded and each rank holds
+whole blocks, a rank updates its blocks and the ranks' new scales are
+gathered (the scales are not sharded along the last axis: the JAX
+package's rule); where a block would span ranks, the rank updates the
+rows gathered along the last axis and keeps its own shard of them.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.common import ParamDesc, map_descs, tree_leaves
+from repro_torch.models.common import (ParamDesc, is_dtensor, map_descs,
+                                       to_placements, tree_leaves)
 
 # The most elements of one leaf that a step updates at once (256 MB of
 # fp32 a temporary).
@@ -99,12 +109,9 @@ def adam_state_desc(param_desc: Any, cfg: AdamConfig):
     def moment(d: ParamDesc):
         if not cfg.compress:
             return ParamDesc(d.shape, torch.float32, tp=d.tp, fsdp=d.fsdp)
-        n = d.shape[-1]
-        nb = n // _block_of(n, cfg.block)
         last = len(d.shape) - 1
-
-        def keep(ax):
-            return None if ax is None or (ax == last and nb != n) else ax
+        # the scales keep the parameter's sharding off the last axis
+        keep = lambda ax: ax if ax != last else None
         return {"q": ParamDesc(d.shape, torch.int8, tp=d.tp, fsdp=d.fsdp),
                 "s": ParamDesc(_scale_shape(d.shape, cfg.block),
                                torch.float32, tp=keep(d.tp),
@@ -174,25 +181,93 @@ def adam_update(grads: Any, state: Any, params: Any, cfg: AdamConfig,
             mu.copy_(mu_f)
             nu.copy_(nu_f)
 
+    def update_leaf(p, g, mu, nu):
+        p2, g2 = leaf_rows(p), leaf_rows(g.contiguous())
+        if cfg.compress:
+            m2 = [leaf_rows(m[k]) for m in (mu, nu) for k in ("q", "s")]
+        else:
+            m2 = [leaf_rows(mu), leaf_rows(nu)]
+        for r in row_ranges(p.shape):
+            mq = [t[r] for t in m2]
+            if cfg.compress:
+                upd(p2[r], g2[r], {"q": mq[0], "s": mq[1]},
+                    {"q": mq[2], "s": mq[3]})
+            else:
+                upd(p2[r], g2[r], mq[0], mq[1])
+
     leaves = zip(tree_leaves(params), flatten_up_to(params, grads),
                  flatten_up_to(params, state["mu"]),
                  flatten_up_to(params, state["nu"]))
     with torch.no_grad():
         for p, g, mu, nu in leaves:
-            p2, g2 = leaf_rows(p), leaf_rows(g.contiguous())
-            if cfg.compress:
-                m2 = [leaf_rows(m[k]) for m in (mu, nu) for k in ("q", "s")]
+            if is_dtensor(p):
+                _update_shards(p, g, mu, nu, cfg, update_leaf)
             else:
-                m2 = [leaf_rows(mu), leaf_rows(nu)]
-            for r in row_ranges(p.shape):
-                mq = [t[r] for t in m2]
-                if cfg.compress:
-                    upd(p2[r], g2[r], {"q": mq[0], "s": mq[1]},
-                        {"q": mq[2], "s": mq[3]})
-                else:
-                    upd(p2[r], g2[r], mq[0], mq[1])
+                update_leaf(p, g, mu, nu)
     state["step"] = torch.tensor(step, dtype=torch.int32)
     return params, state
+
+
+def _same_layout(t, like) -> None:
+    if tuple(t.placements) != tuple(like.placements):
+        raise ValueError(f"optimizer state laid out as {t.placements}, its "
+                         f"parameter as {like.placements}")
+
+
+def _update_shards(p, g, mu, nu, cfg: AdamConfig, update_leaf) -> None:
+    """One DTensor leaf's update on this rank's shards (see the module
+    docstring)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    loc = lambda t: t.to_local()
+    g = to_placements(g, p.placements)
+    if not cfg.compress:
+        for m in (mu, nu):
+            _same_layout(m, p)
+        update_leaf(loc(p), loc(g), loc(mu), loc(nu))
+        return
+    for m in (mu, nu):
+        _same_layout(m["q"], p)
+    last = p.ndim - 1
+    dims = {d for d, pl in enumerate(p.placements)
+            if isinstance(pl, Shard) and pl.dim == last}
+    if not dims:
+        update_leaf(loc(p), loc(g), {k: loc(v) for k, v in mu.items()},
+                    {k: loc(v) for k, v in nu.items()})
+        return
+    mesh = p.device_mesh
+    shape, off = compute_local_shape_and_global_offset(p.shape, mesh,
+                                                       p.placements)
+    n_loc, lo = shape[last], off[last]
+    blk = cfg.block
+    if _block_of(p.shape[-1], blk) == blk and n_loc % blk == 0:
+        # whole blocks on each rank: update them, then gather the scales
+        part = {name: loc(m["s"])[..., lo // blk:(lo + n_loc) // blk]
+                .contiguous() for name, m in (("mu", mu), ("nu", nu))}
+        update_leaf(loc(p), loc(g), {"q": loc(mu["q"]), "s": part["mu"]},
+                    {"q": loc(nu["q"]), "s": part["nu"]})
+        for name, m in (("mu", mu), ("nu", nu)):
+            s = m["s"]
+            pl = tuple(Shard(last) if d in dims else x
+                       for d, x in enumerate(s.placements))
+            new = DTensor.from_local(part[name], mesh, pl, run_check=False,
+                                     shape=s.shape, stride=s.stride())
+            loc(s).copy_(to_placements(new, s.placements).to_local())
+        return
+    # a block spans ranks: update the rows gathered along the last axis
+    work = tuple(Replicate() if d in dims else x
+                 for d, x in enumerate(p.placements))
+    whole = lambda t: to_placements(t, work).to_local()
+    pw, gw = whole(p), whole(g)
+    qw = {"mu": whole(mu["q"]), "nu": whole(nu["q"])}
+    update_leaf(pw, gw, {"q": qw["mu"], "s": loc(mu["s"])},
+                {"q": qw["nu"], "s": loc(nu["s"])})
+    mine = (Ellipsis, slice(lo, lo + n_loc))
+    loc(p).copy_(pw[mine])
+    loc(mu["q"]).copy_(qw["mu"][mine])
+    loc(nu["q"]).copy_(qw["nu"][mine])
 
 
 def flatten_up_to(like, tree) -> list:

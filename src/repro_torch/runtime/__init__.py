@@ -1,7 +1,6 @@
-"""The training driver's fault-tolerance primitives. The JAX package's
-`elastic_reshard` places a checkpoint on a mesh and waits for the mesh
-level (ROADMAP.md queue 1 item 3)."""
+"""The training driver's fault-tolerance primitives."""
 
-from repro_torch.runtime.fault import PreemptionHandler, StepMonitor
+from repro_torch.runtime.fault import (PreemptionHandler, StepMonitor,
+                                       elastic_reshard)
 
-__all__ = ["StepMonitor", "PreemptionHandler"]
+__all__ = ["StepMonitor", "PreemptionHandler", "elastic_reshard"]

@@ -1,5 +1,5 @@
-"""Fault-tolerance runtime: straggler detection and preemption handling,
-the JAX package's `runtime/fault.py` on one device.
+"""Fault-tolerance runtime: straggler detection, preemption handling,
+elastic resharding (the JAX package's `runtime/fault.py`).
 
   * `StepMonitor` — rolling-median step-time watchdog. A step exceeding
     `factor ×` median (or `deadline_s`) is recorded as a straggler event;
@@ -7,6 +7,8 @@ the JAX package's `runtime/fault.py` on one device.
     checkpoint-and-reschedule.
   * `PreemptionHandler` — converts SIGTERM/SIGUSR1 into a checked flag so
     the loop checkpoints and exits cleanly at the next step boundary.
+  * `elastic_reshard` — places a host checkpoint onto a mesh (any data-
+    and model-axis sizes), enabling restart with fewer/more replicas.
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ from __future__ import annotations
 import signal
 import time
 from collections import deque
+
+from repro_torch.models.common import distribute, tree_leaves, \
+    tree_unflatten
 
 
 class StepMonitor:
@@ -62,3 +67,13 @@ class PreemptionHandler:
     def restore(self) -> None:
         for sig, prev in self._previous.items():
             signal.signal(sig, prev)
+
+
+def elastic_reshard(host_tree, spec_tree, mesh):
+    """Place a host checkpoint onto `mesh` with `spec_tree`'s partition
+    specs (a tree of the same structure, a `PartitionSpec` at each leaf):
+    every rank holds the whole host tree and keeps its own shards — the
+    restart path after a shrink/grow event."""
+    leaves = [distribute(t, spec, mesh) for t, spec in
+              zip(tree_leaves(host_tree), tree_leaves(spec_tree))]
+    return tree_unflatten(host_tree, iter(leaves))
