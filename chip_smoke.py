@@ -8,7 +8,8 @@ not 0):
 
 1. device  — the card (nvidia-smi's name and power limit), torch and CUDA.
 2. build   — nvcc builds the port's kernels from `src/repro_torch/kernels/
-             csrc/` (one nvcc per source, all started together).
+             csrc/` (one nvcc per source, all started together), on a
+             thread of its own while phase 3 synthesizes the data.
 3. data    — the `synth_192d` spec at 1,000,000 rows and 192 dimensions,
              opened as `FilteredIndex(ds)` on the card.
 4. kernels — each kernel against its plain PyTorch version on the card:
@@ -348,6 +349,32 @@ not 0):
              read in a second pass without the counting. Per rank: peak
              memory and step milliseconds, four ranks sharing one card
              (not scaling numbers).
+18. mesh_families — (a) the port's dry run (`launch/dryrun.py`) in two
+             subprocesses with a timeout, under this machine's torch,
+             started before the build and run beside it, the data's
+             synthesis and phase 4's checks, collected before phase 5 (no
+             timed phase runs beside it) and reported here: qwen2-0.5b,
+             xlstm-125m,
+             hymba-1.5b and whisper-medium at decode_32k and train_4k on
+             the 16×16 mesh, each cell under a fake process group of 256
+             ranks with the mesh's device type "cuda"; each cell's summary
+             line printed, every cell "ok", the decode cells' argument
+             bytes equal to the JAX package's and their per-rank dot FLOPs
+             within 2% of its, or at the ratio tests/test_torch_dryrun.py
+             pins within 1% (counts of a rank's work, not times). (b)
+             phase 17 (b)'s MESH_RANKS processes after their work there,
+             on the same HOST_STAGED group, a (2, 2) mesh: xlstm-125m (4
+             blocks, one whole block pattern), hymba-1.5b (2 layers) and
+             whisper-medium (2 encoder and 2 decoder layers) at full
+             width, fp32 compute, TF32 off, weights drawn on the card from
+             a seed: a train step on 2 x 512 tokens, a prefill of 2
+             prompts of 60 tokens and 4 greedy decode steps, held on rank
+             0 to the same calls on one rank (loss within 1e-5 and grad
+             norm within 1e-4 relative, logits within B_TOL, the tokens
+             equal); hymba's 25 heads and 5 kv heads do not divide
+             "model" = 2, so its heads run whole on every rank. The ranks'
+             launch counts set to 0 just before and read just after
+             (`launches_by_path.mesh_families`).
 
 Every line carries "t", the seconds since the script started. The last
 three lines are nvidia-smi's name and power limit, the kernels'
@@ -5981,9 +6008,12 @@ def mesh_rank_work(rank, store_path, data_dir) -> dict:
         say("deepseek", seconds=time.perf_counter() - t0,
             **(out["deepseek_1x2"] or {}))
         out["peak_device_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        out["seconds"] = time.perf_counter() - t_all
+        tdist.barrier()
+        # phase 18 (b) in these processes: no second start of the ranks
+        out["families"] = fam_mesh_work(rank, dev)
     finally:
         tdist.destroy_process_group()
-    out["seconds"] = time.perf_counter() - t_all
     return out
 
 
@@ -6121,13 +6151,14 @@ def run_mesh(fx, batches: dict, dev) -> dict:
         for p in procs:
             p.start()
         res = {}
-        deadline = time.perf_counter() + MESH_JOIN_S
+        # the ranks go on to phase 18 (b) after their phase 17 work
+        deadline = time.perf_counter() + MESH_JOIN_S + FM_JOIN_S
         while len(res) < MESH_RANKS:
             left = deadline - time.perf_counter()
             if left <= 0:
                 late = sorted(set(range(MESH_RANKS)) - set(res))
                 raise AssertionError(f"mesh ranks {late} did not finish in "
-                                     f"{MESH_JOIN_S} s")
+                                     f"{MESH_JOIN_S + FM_JOIN_S} s")
             try:
                 r, o = queue.get(timeout=min(left, 5.0))
                 res[r] = o
@@ -6178,7 +6209,338 @@ def run_mesh(fx, batches: dict, dev) -> dict:
              for r, o in sorted(res.items())},
          search=r0["search"], step_2x2=st, reshard_1x4=rs,
          deepseek_1x2=r0["deepseek_1x2"])
-    return {"seconds": time.perf_counter() - t_all, "launches": launches}
+    return {"seconds": time.perf_counter() - t_all, "launches": launches,
+            "families": {r: o["families"] for r, o in res.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the dry run, and the recurrent and encoder-decoder families on
+# a mesh
+# ---------------------------------------------------------------------------
+
+# (a) The port's dry run (`launch/dryrun.py`) under this machine's torch,
+# in DRY_GROUPS subprocesses of one thread each (the cells split so the
+# two take about as long), started before the build and collected, with
+# a timeout counted from their start, before the first timed phase (the
+# main path): they run beside the build, the data's synthesis and the
+# kernels' checks only, so no timed phase shares the host's cores with
+# them. DRY_ARCHS × DRY_SHAPES on the 16×16
+# mesh, a fake process group of 256 ranks a cell, the mesh's device type
+# "cuda". Every cell must end "ok"; each decode cell's
+# argument bytes must equal the JAX package's, and its per-rank dot
+# FLOPs the JAX package's within DRY_FLOPS_RTOL, or where the port
+# partitions otherwise the ratio DRY_PINNED within DRY_PIN_RTOL (both as
+# tests/test_torch_dryrun.py holds them; the JAX package's figures,
+# device-independent, from its own dry run, `repro.launch.dryrun`). The
+# counts are a rank's work, not this card's speed.
+DRY_GROUPS = (("xlstm-125m", "qwen2-0.5b"), ("whisper-medium", "hymba-1.5b"))
+DRY_ARCHS = tuple(a for g in DRY_GROUPS for a in g)
+DRY_SHAPES = ("decode_32k", "train_4k")
+DRY_REF_DECODE = {"qwen2-0.5b": (1_903_247_360, 359_136_804),
+                  "xlstm-125m": (77_347_584, 78_449_696),
+                  "hymba-1.5b": (4_391_756_800, 1_242_347_428),
+                  "whisper-medium": (2_886_418_432, 2_197_598_244)}
+DRY_FLOPS_RTOL, DRY_PIN_RTOL = 0.02, 0.01
+DRY_PINNED = {"qwen2-0.5b": 12.107, "xlstm-125m": 1.6104}
+DRY_TIMEOUT_S = 300
+DRY_SCRIPT = (
+    "import json, sys\n"
+    "from repro_torch.launch import dryrun\n"
+    "out = []\n"
+    "for arch, shape in json.loads(sys.argv[1]):\n"
+    "    res = dryrun.run_cell(arch, shape, False)\n"
+    "    print(dryrun.summary_line(res), flush=True)\n"
+    "    out.append(res)\n"
+    "print('CELLS ' + json.dumps(out), flush=True)\n")
+# (b) Phase 17 (b)'s MESH_RANKS processes, after their work there (no
+# second start of four processes), on the same HOST_STAGED group, a
+# (2, 2) (data, model) mesh. Each family at full width, its depth cut to
+# FM_DEPTH (xlstm-125m one whole block pattern), fp32 compute and TF32
+# off, the weights drawn on the card from FM_SEED: a train step on
+# `train_loop`'s step-0 batch of FM_BATCH × FM_SEQ tokens (accumulation
+# 1), a prefill of FM_PROMPTS prompts of FM_PROMPT_LEN tokens
+# right-padded to FM_S_MAX, and FM_NEW greedy decode steps. Rank 0 runs
+# the same calls on one rank (no mesh) from the same weights: the loss
+# within FM_LOSS_RTOL and the grad norm within FM_GNORM_RTOL, relative;
+# prefill's and every decode step's logits within B_TOL (the tolerance
+# phase 15 holds these families' card against the CPU to); the greedy
+# tokens equal.
+FM_DEPTH = {"xlstm-125m": {"n_layers": 4},
+            "hymba-1.5b": {"n_layers": 2},
+            "whisper-medium": {"n_layers": 2, "encoder_layers": 2}}
+FM_BATCH, FM_SEQ, FM_SEED = 2, 512, 11
+FM_PROMPTS, FM_PROMPT_LEN, FM_S_MAX, FM_NEW = 2, 60, 64, 4
+FM_LOSS_RTOL, FM_GNORM_RTOL = 1e-5, 1e-4
+FM_JOIN_S = 240
+
+
+def fam_mesh_serve(params, cfg, ctx, toks, enc):
+    """Prefill of `toks` (right-padded, FM_PROMPT_LEN real) and FM_NEW
+    greedy decode steps: (each call's logits, whole, as numpy; the
+    greedy tokens [B, FM_NEW]; prefill ms; decode ms a step). On a mesh
+    the rows go over the data axes and the cache is laid out by its
+    specs."""
+    mesh = ctx.mesh
+    batch = {"tokens": toks}
+    if enc is not None:
+        batch["enc_inputs"] = enc
+    if mesh is not None:
+        batch = {k: serve._rows(v, ctx) for k, v in batch.items()}
+    whole = (lambda t: t.full_tensor()) if mesh is not None else \
+        (lambda t: t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = lm.forward_prefill(params, batch, cfg, ctx,
+                                           prompt_len=FM_PROMPT_LEN)
+        if mesh is not None:
+            cache = serve._place_cache(cache, cfg, ctx, FM_PROMPTS,
+                                       FM_S_MAX)
+        out = [whole(logits).cpu().numpy()]
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        toks_out = []
+        t0 = time.perf_counter()
+        for i in range(FM_NEW):
+            nxt = torch.argmax(whole(logits)[:, -1], dim=-1)
+            toks_out.append(nxt.cpu().numpy())
+            step = nxt[:, None] if mesh is None else serve._rows(
+                nxt[:, None], ctx)
+            logits, cache = lm.forward_decode(params, cache, step,
+                                              FM_PROMPT_LEN + i, cfg, ctx)
+            out.append(whole(logits).cpu().numpy())
+        torch.cuda.synchronize()
+    return out, np.stack(toks_out, 1), prefill_ms, \
+        (time.perf_counter() - t0) * 1e3 / FM_NEW
+
+
+def fam_mesh_one(arch: str, mesh, rank: int, dev) -> dict:
+    """One family on the (2, 2) mesh, and on rank 0 the same calls on
+    one rank, compared there."""
+    cfg = dataclasses.replace(lm_configs.get_config(arch),
+                              compute_dtype="float32", **FM_DEPTH[arch])
+    desc = lm.model_desc(cfg)
+    opt_cfg = steps_mod.default_opt_cfg(cfg)
+    batch = train_batch(cfg, FM_BATCH, FM_SEQ, 0, dev)
+    rng = np.random.default_rng(FM_SEED)
+    toks = np.zeros((FM_PROMPTS, FM_S_MAX), np.int64)
+    toks[:, :FM_PROMPT_LEN] = rng.integers(1, cfg.vocab, size=(
+        FM_PROMPTS, FM_PROMPT_LEN))
+    toks = torch.from_numpy(toks).to(dev)
+    enc = frames(cfg, FM_PROMPTS, FM_SEED).to(dev) \
+        if cfg.encoder_layers else None
+    ctx = lm.mesh_ctx(mesh)
+    heads = lm_attn.heads_part(ctx, cfg.n_heads, cfg.n_kv_heads)
+
+    def step_on(placed_ctx, place):
+        params = draw_on_card(desc, FM_SEED, dev)
+        params, opt = place(params, adam_mod.adam_init(params, opt_cfg))
+        b = train_mod.place_batch(cfg, batch, mesh) \
+            if placed_ctx.mesh is not None else batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with train_mod.deterministic(dev):
+            _, _, met = steps_mod.make_train_step(
+                cfg, placed_ctx, accum=1, opt_cfg=opt_cfg)(params, opt, b)
+        m = {"loss": float(met["loss"]),
+             "grad_norm": float(met["grad_norm"])}
+        m["step_ms"] = (time.perf_counter() - t0) * 1e3
+        return m
+
+    res = {"layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+           "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "heads_over_model": heads is not None}
+    res["step"] = step_on(ctx, lambda p, o: train_mod.place_state(
+        p, o, cfg, opt_cfg, mesh))
+    torch.cuda.empty_cache()
+    full = draw_on_card(desc, FM_SEED, dev)
+    specs = lm_common.partition_specs(desc, tp_axis="model", tp_size=2)
+    params = lm_common.tree_unflatten(full, iter(
+        lm_common.distribute(t, s, mesh) for t, s in
+        zip(lm_common.tree_leaves(full), lm_common.tree_leaves(specs))))
+    del full
+    logits_m, toks_m, res["prefill_ms"], res["decode_ms"] = \
+        fam_mesh_serve(params, cfg, ctx, toks, enc)
+    del params
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return res
+    one = step_on(lm.ModelCtx(), lambda p, o: (p, o))
+    torch.cuda.empty_cache()
+    params = draw_on_card(desc, FM_SEED, dev)
+    logits_1, toks_1, one["prefill_ms"], one["decode_ms"] = \
+        fam_mesh_serve(params, cfg, lm.ModelCtx(), toks, enc)
+    del params
+    torch.cuda.empty_cache()
+    res["one_rank"] = one
+    for key, tol in (("loss", FM_LOSS_RTOL), ("grad_norm", FM_GNORM_RTOL)):
+        rel = abs(res["step"][key] - one[key]) / abs(one[key])
+        res[f"{key}_rel_diff"] = rel
+        if not np.isfinite(one[key]) or rel > tol:
+            raise AssertionError(f"{arch} (2, 2) step {key} "
+                                 f"{res['step'][key]} vs one rank "
+                                 f"{one[key]}: {rel} > {tol}")
+    errs = [float(np.abs(a - b).max()) for a, b in zip(logits_m, logits_1)]
+    res["logits_max_abs_err"] = errs
+    res["tol"] = B_TOL
+    if not all(np.isfinite(x).all() for x in logits_1) or max(errs) > B_TOL:
+        raise AssertionError(f"{arch} (2, 2) logits differ from one rank's "
+                             f"by {errs} > {B_TOL}")
+    if not np.array_equal(toks_m, toks_1):
+        raise AssertionError(f"{arch} (2, 2) greedy tokens {toks_m.tolist()}"
+                             f" vs one rank {toks_1.tolist()}")
+    res["tokens_equal"] = True
+    return res
+
+
+def fam_mesh_work(rank: int, dev) -> dict:
+    """Phase 18 (b) in one of phase 17's MESH_RANKS processes, after its
+    work there, on the same host-staged group: the families on a (2, 2)
+    mesh, the launch counts set to 0 just before and read just after."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    out = {}
+    t_all = time.perf_counter()
+    mesh = mesh_mod.make_mesh((2, 2), ("data", "model"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for arch in FM_DEPTH:
+        t0 = time.perf_counter()
+        out[arch] = fam_mesh_one(arch, mesh, rank, dev)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        if rank == 0:
+            emit(f"mesh_families.rank0.{arch}", **out[arch])
+    out["launches"] = read_launches()
+    out["peak_device_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def check_dry_cells(cells: list) -> dict:
+    """Every dry-run cell "ok"; the decode cells' argument bytes equal the
+    JAX package's and their dot FLOPs within DRY_FLOPS_RTOL of it, or at
+    the pinned ratio within DRY_PIN_RTOL."""
+    out = {}
+    for c in cells:
+        key = f"{c['arch']} {c['shape']}"
+        if c["status"] != "ok":
+            raise AssertionError(f"dry run {key}: {c['status']} "
+                                 f"{c.get('error', c.get('reason'))}")
+        out[key] = {k: c[k] for k in (
+            "dot_flops", "hbm_bytes", "collective_bytes",
+            "collective_by_kind", "argument_size_in_bytes", "wall_s",
+            "traced", "dot_flops_by_op")}
+        if c["shape"] != "decode_32k":
+            continue
+        flops, args = DRY_REF_DECODE[c["arch"]]
+        if c["argument_size_in_bytes"] != args:
+            raise AssertionError(f"dry run {key}: argument bytes "
+                                 f"{c['argument_size_in_bytes']} vs the JAX "
+                                 f"package's {args}")
+        ratio = c["dot_flops"] / flops
+        want = DRY_PINNED.get(c["arch"], 1.0)
+        tol = DRY_PIN_RTOL if c["arch"] in DRY_PINNED else DRY_FLOPS_RTOL
+        out[key]["flops_ratio_to_reference"] = ratio
+        if abs(ratio / want - 1) > tol:
+            raise AssertionError(f"dry run {key}: dot FLOPs {ratio} times "
+                                 f"the JAX package's, not {want}")
+    return out
+
+
+class DryRun:
+    """Phase 18 (a)'s subprocesses, one per DRY_GROUPS entry: started by
+    the constructor, each with its output in a file under `build/`;
+    `stop` kills any that still runs and removes their directory (also
+    at exit, so no path leaves one running)."""
+
+    def __init__(self):
+        import atexit
+
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        self.dir = tempfile.mkdtemp(prefix="dryrun-",
+                                    dir=os.path.join(ROOT, "build"))
+        env = dict(os.environ, REPRO_ARTIFACTS=self.dir,
+                   OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+        env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        self.t0 = time.perf_counter()
+        self.logs, self.procs = [], []
+        for i, group in enumerate(DRY_GROUPS):
+            cells = [(a, s) for a in group for s in DRY_SHAPES]
+            self.logs.append(open(os.path.join(self.dir, f"log{i}.txt"),
+                                  "w+"))
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", DRY_SCRIPT, json.dumps(cells)],
+                cwd=ROOT, env=env, stdout=self.logs[-1],
+                stderr=subprocess.STDOUT))
+        atexit.register(self.stop)
+
+    def collect(self) -> dict:
+        """Waits out the rest of DRY_TIMEOUT_S from the start, prints each
+        cell's summary line and checks the cells (`check_dry_cells`);
+        returns {"cells", "wall_s" (start to the last exit), "wait_s"}."""
+        t_wait = time.perf_counter()
+        try:
+            cells = []
+            for proc, log in zip(self.procs, self.logs):
+                left = DRY_TIMEOUT_S - (time.perf_counter() - self.t0)
+                try:
+                    proc.wait(timeout=max(left, 1.0))
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"the dry run did not finish in "
+                                         f"{DRY_TIMEOUT_S} s")
+                log.seek(0)
+                text = log.read()
+                lines = [ln for ln in text.splitlines() if ln.startswith(
+                    ("ok ", "error ", "skipped ", "CELLS "))]
+                if proc.returncode != 0 or not lines or \
+                        not lines[-1].startswith("CELLS "):
+                    raise AssertionError(f"the dry run exited "
+                                         f"{proc.returncode}: {text[-3000:]}")
+                for ln in lines[:-1]:
+                    print(ln, flush=True)
+                cells += json.loads(lines[-1][len("CELLS "):])
+            done = time.perf_counter()
+        finally:
+            self.stop()
+        return {"cells": check_dry_cells(cells), "wall_s": done - self.t0,
+                "wait_s": done - t_wait}
+
+    def stop(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        for log in self.logs:
+            if not log.closed:
+                log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def run_mesh_families(dry: dict, ranks: dict) -> dict:
+    """Phase 18: (a) the dry run's cells, collected and checked before
+    the first timed phase (`DryRun.collect`), and (b) the families' results
+    from phase 17's ranks (`fam_mesh_work`, checked on rank 0 there).
+    Returns the ranks' launch counts, summed."""
+    emit("mesh_families.dryrun", note="a rank's work on the 16x16 mesh, "
+         "counted on meta tensors under a fake process group: no time on "
+         "any chip; run beside the build, the data's synthesis and the "
+         "kernels' checks",
+         wall_s=dry["wall_s"], wait_s=dry["wait_s"], cells=dry["cells"])
+    launches = {name: sum(o["launches"][name] for o in ranks.values())
+                for name in KERNEL_WRAPPERS}
+    emit("mesh_families.ranks", note=f"{MESH_RANKS} ranks sharing one card "
+         "on (2, 2), phase 17's processes after their work there: per-rank "
+         "times, not scaling numbers; hymba-1.5b's 25 heads and 5 kv heads "
+         "do not divide 'model' = 2, so its heads run whole on every rank",
+         per_rank={r: {"seconds": o["seconds"],
+                       "peak_device_mb": o["peak_device_mb"],
+                       **{a: {k: o[a][k] for k in ("step", "prefill_ms",
+                                                   "decode_ms", "seconds")}
+                          for a in FM_DEPTH}}
+                   for r, o in sorted(ranks.items())},
+         families={a: ranks[0][a] for a in FM_DEPTH})
+    return {"launches": launches}
 
 
 PROFILE_ATTEMPTS = 3
@@ -6271,25 +6633,45 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
-    t0 = time.perf_counter()
-    lib = _build.build()
-    _build.library()
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.perf_counter() - t0, library=os.path.relpath(
-        lib, ROOT), nvcc_seconds=_build.build_seconds, ptxas=ptxas)
+    # phase 18 (a), the dry run, beside the build, the data's synthesis
+    # and the kernels' checks; collected before the first timed phase
+    dry = DryRun()
+    # the build (nvcc in subprocesses) on a thread of its own while this
+    # one synthesizes the data
+    built = {}
 
+    def build_library():
+        t = time.perf_counter()
+        try:
+            built["lib"] = _build.build()
+        except BaseException as e:
+            built["error"] = e
+        built["seconds"] = time.perf_counter() - t
+
+    builder = threading.Thread(target=build_library, daemon=True)
+    builder.start()
     t0 = time.perf_counter()
     spec = dataclasses.replace(VALIDATION_SPECS["synth_192d"], n=ROWS,
                                dim=192)
     ds = synthesize(spec)
     t_syn = time.perf_counter() - t0
+    builder.join()
+    if "error" in built:
+        raise built["error"]
+    _build.library()
+    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit("build", seconds=built["seconds"], library=os.path.relpath(
+        built["lib"], ROOT), nvcc_seconds=_build.build_seconds, ptxas=ptxas,
+         beside="the data's synthesis and the dry run")
+
+    t0 = time.perf_counter()
     fx = FilteredIndex(ds)                    # device="cuda", the default
     dd = fx.device
     torch.cuda.synchronize()
     emit("data", spec=dataclasses.asdict(spec), n=ds.n, dim=ds.dim,
          words=int(ds.bitmaps.shape[1]), groups=ds.n_groups,
-         synth_s=t_syn, upload_s=time.perf_counter() - t0 - t_syn,
+         synth_s=t_syn, upload_s=time.perf_counter() - t0,
          device_mb=(dd.vectors.nbytes + dd.bitmaps.nbytes) / 1e6)
 
     t0 = time.perf_counter()
@@ -6299,6 +6681,13 @@ def main() -> int:
     emit("graph.check", sets=check_graph_build(dev),
          card_build="bit-identical to the numpy build",
          seconds=time.perf_counter() - t0)
+
+    # phase 18 (a)'s dry run, collected before the first timed phase (it
+    # ran beside the build, the data's synthesis and the checks above)
+    dry_run = dry.collect()
+    emit("dryrun", wall_s=dry_run["wall_s"], wait_s=dry_run["wait_s"],
+         cells=len(dry_run["cells"]), checked="every cell ok; the decode "
+         "cells held to the JAX package's (phase 18 (a))")
 
     # (a)-(d): the main path, with every launch count set to 0 just before
     t0 = time.perf_counter()
@@ -6735,7 +7124,23 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_run = run_mesh(fx, exact_batches, dev)
     launches_mesh = mesh_run.pop("launches")
-    emit("mesh", seconds=time.perf_counter() - t0, launches=launches_mesh)
+    fam_ranks = mesh_run.pop("families")
+    fam_s = max(o["seconds"] for o in fam_ranks.values())
+    emit("mesh", seconds=time.perf_counter() - t0 - fam_s,
+         launches=launches_mesh, note="the phase's wall time less phase 18 "
+         "(b)'s span, which ran in the ranks after phase 17 (b)")
+    # phase 18, the dry run's cells (run beside phases 2-4) and the
+    # recurrent and encoder-decoder families on a (2, 2) mesh of phase
+    # 17's four ranks sharing the card, each rank's launch counts set to
+    # 0 just before and read just after (summed over the ranks)
+    t0 = time.perf_counter()
+    fm_run = run_mesh_families(dry_run, fam_ranks)
+    launches_fm = fm_run.pop("launches")
+    emit("mesh_families", seconds=fam_s + time.perf_counter() - t0,
+         launches=launches_fm, note="(b)'s span in the ranks, the longest "
+         "rank's; (a) ran beside the build, the data's synthesis and the "
+         "kernels' checks (its wall time in mesh_families.dryrun), not in "
+         "this span")
     serving_total = {name: sum(c[name] for c in launches_serving.values())
                      for name in KERNEL_WRAPPERS}
     launches_by_path = {"main": launches, "sharded": launches_sharded,
@@ -6746,7 +7151,8 @@ def main() -> int:
                         "train": launches_train, "rag": launches_rag,
                         "rag_deepseek": launches_fam,
                         "rag_trained": launches_trained,
-                        "mesh": launches_mesh}
+                        "mesh": launches_mesh,
+                        "mesh_families": launches_fm}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = []

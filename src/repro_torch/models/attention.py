@@ -27,11 +27,14 @@ shard, and the rest runs on each rank's own heads (`common.local_call`,
 the JAX package's per-shard view): the heads split over the "model" axis
 where both the query and the key/value heads divide it, else every rank
 computes all heads. Decode writes the new K/V only on the rank whose
-shard holds `pos` (`common.write_at`) and attends over the cache gathered
-along the sequence, or, with `ctx.opt_flash_decode` on a cache sharded
-over the sequence, by the sequence-parallel flash decode
+shard holds `pos` (`common.write_at`; Hymba's ring at pos % w) and reads
+a cache sharded by heads on each rank's heads; a cache sharded along the
+sequence it reads gathered, with every head, or, with
+`ctx.opt_flash_decode`, by the sequence-parallel flash decode
 (`gqa_decode_flash`: each rank's partial attention over its slice of the
-sequence, combined by log-sum-exp across the "model" ranks).
+sequence, combined by log-sum-exp across the "model" ranks). Whisper's
+cross-attention projects the encoder's K/V and attends on each rank's
+heads.
 
 Training (`gqa_train`, `mla_train`) runs the prefill's chunked attention
 under autograd: the masked scores are `torch.where`'s `NEG_INF`, so a
@@ -46,8 +49,8 @@ import torch.distributed._functional_collectives as funcol
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (ParamDesc, apply_rope, constrain,
-                                       dp_part, local_call, on_mesh,
-                                       rms_norm, write_at)
+                                       dp_part, is_dtensor, local_call,
+                                       on_mesh, rms_norm, write_at)
 
 NEG_INF = -1e30
 
@@ -226,14 +229,26 @@ def _decode_attend(q, k, v, cfg: ModelConfig, pos: int):
     return torch.einsum("bgrqt,btgh->bqgrh", probs, v).reshape(b, 1, -1)
 
 
-def _decode_qkv(p, x, cfg: ModelConfig, pos: int, ctx):
-    """The step's rotated q, k, v [B,1,heads,hd]; on a mesh replicated
-    over "model" (every rank holds every head)."""
+def _decode_qkv(p, x, cfg: ModelConfig, pos: int, ctx, hp=None):
+    """The step's rotated q, k, v [B,1,heads,hd]; on a mesh with the heads
+    over "model" where `hp` says so, else every head on every rank."""
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     dp = dp_part(ctx)
     return local_call(ctx, lambda q, k, v: _heads(q, k, v, cfg, positions),
-                      list(_proj(p, x, cfg)), [(dp, None, None)] * 3,
-                      [(dp, None, None, None)] * 3)
+                      list(_proj(p, x, cfg)), [(dp, None, hp)] * 3,
+                      [(dp, None, hp, None)] * 3)
+
+
+def _decode_heads(ctx, cfg: ModelConfig, cache_k):
+    """The heads' spec entry of a decode step against `cache_k` [B, T,
+    KV, hd]: "model" where both head counts divide it and the cache is
+    not sharded along its sequence there (a sequence-sharded cache is
+    gathered and every rank attends with every head), else None."""
+    hp = heads_part(ctx, cfg.n_heads, cfg.n_kv_heads)
+    if hp is None or not is_dtensor(cache_k):
+        return None
+    d = ctx.mesh.mesh_dim_names.index(ctx.tp_axis)
+    return None if cache_k.placements[d].is_shard(1) else hp
 
 
 def gqa_decode(p, x, cache, cfg: ModelConfig, pos: int, ctx=None):
@@ -243,18 +258,52 @@ def gqa_decode(p, x, cache, cfg: ModelConfig, pos: int, ctx=None):
     package's `dynamic_update_slice` returns a new array; the port's
     caller owns the one preallocated cache) and attends over positions
     <= pos. Returns (y [B,1,D], the cache). On a mesh the write lands on
-    the rank holding `pos` and the attention reads the cache gathered
-    over "model" (what the JAX package's partitioner does with a
-    sequence-sharded cache)."""
+    the rank holding `pos`; a cache sharded by heads over "model" is read
+    on each rank's heads, one sharded along the sequence is gathered over
+    "model" (what the JAX package's partitioner does with a
+    sequence-sharded cache) and read with every head."""
     pos = _check_pos(pos, cache["k"].shape[1])
-    q, knew, vnew = _decode_qkv(p, x, cfg, pos, ctx)
+    hp = _decode_heads(ctx, cfg, cache["k"])
+    q, knew, vnew = _decode_qkv(p, x, cfg, pos, ctx, hp)
     k, v = cache["k"], cache["v"]
     write_at(k, knew, 1, pos)
     write_at(v, vnew, 1, pos)
     dp = dp_part(ctx)
     out = local_call(ctx, lambda q, k, v: _decode_attend(q, k, v, cfg, pos),
-                     [q, k, v], [(dp, None, None, None)] * 3, (dp, None, None))
+                     [q, k, v], [(dp, None, hp, None)] * 3, (dp, None, hp))
     return out @ p["wo"], {"k": k, "v": v}
+
+
+def gqa_decode_ring(p, x, cache, cfg: ModelConfig, pos: int, ctx=None):
+    """Sliding-window ring-buffer KV cache decode (Hymba): writes the
+    step's K/V and position at slot pos % w in place; slots whose
+    position is past the window, or 2^30 (never written), are masked. On
+    a mesh the writes land on the ranks holding the slot, and each rank
+    attends with its heads (`_decode_heads`)."""
+    w, hd = cache["k"].shape[1], cfg.hd
+    hp = _decode_heads(ctx, cfg, cache["k"])
+    q, knew, vnew = _decode_qkv(p, x, cfg, pos, ctx, hp)
+    slot = pos % w
+    k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+    write_at(k, knew, 1, slot)
+    write_at(v, vnew, 1, slot)
+    write_at(slot_pos, torch.full((1,), pos, dtype=slot_pos.dtype,
+                                  device=x.device), 0, slot)
+
+    def attend(q, k, v, slot_pos):
+        b = q.shape[0]
+        valid = (slot_pos <= pos) & (slot_pos > pos - (cfg.sliding_window
+                                                       or w))
+        qr = q.reshape(b, 1, k.shape[2], -1, hd)
+        scores = _scores(qr, k) / float(np.sqrt(np.float32(hd)))
+        scores = torch.where(valid, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bgrqt,btgh->bqgrh", probs, v).reshape(b, 1, -1)
+
+    dp = dp_part(ctx)
+    out = local_call(ctx, attend, [q, k, v, slot_pos],
+                     [(dp, None, hp, None)] * 3 + [(None,)], (dp, None, hp))
+    return out @ p["wo"], {"k": k, "v": v, "slot_pos": slot_pos}
 
 
 def _all_reduce(t, op: str, group):
@@ -481,16 +530,30 @@ def cross_desc(cfg: ModelConfig) -> dict:
     }
 
 
-def cross_kv(p, enc_out, cfg: ModelConfig):
-    b, t, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(b, t, cfg.n_heads, cfg.hd)
-    v = (enc_out @ p["wv"]).reshape(b, t, cfg.n_heads, cfg.hd)
+def cross_kv(p, enc_out, cfg: ModelConfig, ctx=None):
+    """The encoder's K/V [B, T, H, hd] for one decoder layer; on a mesh
+    the heads over "model" where they divide it."""
+    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
+    dp, hp = dp_part(ctx), heads_part(ctx, cfg.n_heads, cfg.n_heads)
+    split = lambda t: t.reshape(t.shape[0], t.shape[1], -1, cfg.hd)
+    k, v = local_call(ctx, lambda k, v: (split(k), split(v)), [k, v],
+                      [(dp, None, hp)] * 2, [(dp, None, hp, None)] * 2)
     return {"k": k, "v": v}
 
 
-def cross_attend(p, x, kv, cfg: ModelConfig, *, qc: int = 1024):
-    b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    out = _attend_chunked(q, kv["k"], kv["v"], causal=False, window=0,
-                          q_offset=0, qc=qc, n_rep=1)
-    return out.reshape(b, s, -1) @ p["wo"]
+def cross_attend(p, x, kv, cfg: ModelConfig, *, qc: int = 1024, ctx=None):
+    """x's queries over the encoder's K/V, unmasked; on a mesh each rank
+    attends with its heads."""
+    dp, hp = dp_part(ctx), heads_part(ctx, cfg.n_heads, cfg.n_heads)
+
+    def body(q, k, v):
+        b, s = q.shape[:2]
+        out = _attend_chunked(q.reshape(b, s, -1, cfg.hd), k, v,
+                              causal=False, window=0, q_offset=0, qc=qc,
+                              n_rep=1)
+        return out.reshape(b, s, -1)
+
+    out = local_call(ctx, body, [x @ p["wq"], kv["k"], kv["v"]],
+                     [(dp, None, hp)] + [(dp, None, hp, None)] * 2,
+                     (dp, None, hp))
+    return out @ p["wo"]

@@ -244,10 +244,18 @@ def on_mesh(ctx) -> bool:
 
 def dp_part(ctx):
     """The batch dimension's spec entry: the data axis, or the tuple of
-    data axes on a multi-pod mesh; None off a mesh."""
-    if not on_mesh(ctx):
+    data axes on a multi-pod mesh; None off a mesh, and for a batch the
+    data axes do not divide (`ModelCtx._shard_batch` off: replicated, as
+    `launch.specs.batch_partition` lays it out)."""
+    if not on_mesh(ctx) or not ctx._shard_batch:
         return None
     return ctx.dp_axes if len(ctx.dp_axes) > 1 else ctx.dp_axes[0]
+
+
+def batch_axes(ctx) -> tuple:
+    """The mesh axes the batch is sharded over (none where `dp_part` is
+    None)."""
+    return () if dp_part(ctx) is None else tuple(ctx.dp_axes)
 
 
 def to_placements(x, place):
@@ -327,7 +335,7 @@ def write_at(cache, new, dim: int, pos: int) -> None:
     """Writes `new` (size 1 along `dim`) into `cache` at `pos` along
     `dim`, in place. On a mesh only the rank whose shard holds `pos`
     writes; `new` is first laid out as the cache is, replicated along
-    `dim`."""
+    `dim` (a plain tensor counts as replicated)."""
     if not is_dtensor(cache):
         cache.narrow(dim, pos, 1).copy_(new)
         return
@@ -337,11 +345,29 @@ def write_at(cache, new, dim: int, pos: int) -> None:
 
     want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
                  else p for p in cache.placements)
-    new = to_placements(new, want).to_local()
+    if is_dtensor(new):
+        new = to_placements(new, want).to_local()
     shape, offset = compute_local_shape_and_global_offset(
         cache.shape, cache.device_mesh, cache.placements)
     if offset[dim] <= pos < offset[dim] + shape[dim]:
         cache.to_local().narrow(dim, pos - offset[dim], 1).copy_(new)
+
+
+def uniform_range(n: int):
+    """range(n), for a loop whose iterations all run the same operations
+    on the same shapes. Under a dispatch mode that counts such a loop by
+    one iteration (`launch.step_analysis.StepCounter`, which has a
+    `uniform_range` method), the mode gives the iterations: with its
+    repeats on, the first only, what it does counted n times (the HLO
+    analyser's loop trip counts); the values the loop writes are then
+    those of its first iteration only."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        loop = getattr(mode, "uniform_range", None)
+        if loop is not None:
+            return loop(n)
+    return range(n)
 
 
 def count_params(tree) -> int:

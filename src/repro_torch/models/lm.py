@@ -31,11 +31,9 @@ axes) the parameters are DTensors placed by their partition specs and
 the token batches are sharded over the data axes; the forwards run under
 DTensor's `implicit_replication` (plain tensors such as positions and
 masks count as replicated), keep the residual stream batch-sharded and
-replicated over "model", and run the attention, the embedding lookup and
-the MoE layer on each rank's shards. The dense decoders and the MoE and
-MLA families (grok-1, deepseek-v2) run there; the recurrent and
-encoder-decoder families (xLSTM, Hymba, whisper) raise
-NotImplementedError on a mesh.
+replicated over "model", and run the attention, the embedding lookup,
+the MoE layer and the recurrent layers' gates and scans on each rank's
+shards (`common.local_call`): every family runs there.
 """
 
 from __future__ import annotations
@@ -44,7 +42,6 @@ import contextlib
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -52,10 +49,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.models.common import (ParamDesc, cast_floats, constrain,
-                                       dp_part, is_dtensor, local_call,
-                                       map_descs, on_mesh, rms_norm,
-                                       shard_act, to_placements)
+from repro_torch.models.common import (ParamDesc, batch_axes, cast_floats,
+                                       constrain, dp_part, is_dtensor,
+                                       local_call, map_descs, on_mesh,
+                                       rms_norm, shard_act, to_placements)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +70,10 @@ class ModelCtx:
     # perf knobs, off by default as in the JAX package
     opt_acts: bool = False         # Megatron-style activation constraints
     opt_flash_decode: bool = False # sequence-parallel LSE decode
+    # the batch over the data axes; set by the forwards alone
+    # (`_for_batch`), off for a batch the data axes do not divide, which
+    # is then replicated over them
+    _shard_batch: bool = dataclasses.field(default=True, repr=False)
 
 
 def mesh_ctx(mesh, **kw) -> ModelCtx:
@@ -83,6 +84,14 @@ def mesh_ctx(mesh, **kw) -> ModelCtx:
     axes = mesh_axes(mesh)
     return ModelCtx(mesh=mesh, tp_axis=axes.tp_axis, dp_axes=axes.dp_axes,
                     tp_size=axes.tp_size, dp_size=axes.dp_size, **kw)
+
+
+def _for_batch(ctx: ModelCtx, rows: int) -> ModelCtx:
+    """`ctx` for a batch of `rows`: replicated over the data axes where
+    they do not divide it (`launch.specs.batch_partition`'s layout)."""
+    if on_mesh(ctx) and rows % ctx.dp_size:
+        return dataclasses.replace(ctx, _shard_batch=False)
+    return ctx
 
 
 def mesh_mode(ctx):
@@ -117,15 +126,6 @@ def _unshard(tree, ctx: ModelCtx):
         for d, p in enumerate(t.placements)]) if is_dtensor(t) else t, tree)
 
 
-def _check_mesh(cfg: ModelConfig, ctx: ModelCtx) -> None:
-    if on_mesh(ctx) and (cfg.encoder_layers or set(layer_kinds(cfg))
-                         - {"attn"}):
-        raise NotImplementedError(
-            f"{cfg.name} on a mesh: the recurrent and encoder-decoder "
-            f"families' mesh forwards come with the next slice, the dry "
-            f"run's (ROADMAP.md queue 1 item 1d)")
-
-
 def _embed(table, tokens, ctx: ModelCtx):
     """The embedding rows of `tokens`. On a mesh each rank looks its
     tokens up in its slice of the vocabulary (where the vocabulary
@@ -148,9 +148,9 @@ def _embed(table, tokens, ctx: ModelCtx):
     if vt is None:
         return local_call(ctx, body, [table, tokens], [(None, None),
                                                        (dp, None)],
-                          (dp, None, None), vary=ctx.dp_axes)
+                          (dp, None, None), vary=batch_axes(ctx))
     x = local_call(ctx, body, [table, tokens], [(tp, None), (dp, None)],
-                   (tp, dp, None, None), vary=tuple(ctx.dp_axes) + (tp,))
+                   (tp, dp, None, None), vary=batch_axes(ctx) + (tp,))
     return _residual(x.sum(0), ctx)
 
 
@@ -336,7 +336,8 @@ def _apply_block(kind: str, lp, x, cfg: ModelConfig, ctx: ModelCtx,
         x = _residual(shard_act(x + shard_act(y, ctx), ctx), ctx)
         if kind == "dec":
             h = rms_norm(x, lp["lnx"], cfg.norm_eps)
-            x = x + A.cross_attend(lp["cross"], h, enc_kv, cfg, qc=qc)
+            x = _residual(x + A.cross_attend(lp["cross"], h, enc_kv, cfg,
+                                             qc=qc, ctx=ctx), ctx)
         h = shard_act(rms_norm(x, lp["ln2"], cfg.norm_eps), ctx)
         if "moe" in lp:
             y, aux = M.moe_apply(lp["moe"], h, cfg, ctx)
@@ -347,19 +348,21 @@ def _apply_block(kind: str, lp, x, cfg: ModelConfig, ctx: ModelCtx,
         return _residual(shard_act(x + shard_act(y, ctx), ctx), ctx), aux
     if kind == "mlstm":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        return x + S.mlstm_train(lp["mlstm"], h, cfg, chunk=ctx.gla_chunk), \
-            aux
+        return _residual(x + S.mlstm_train(lp["mlstm"], h, cfg,
+                                           chunk=ctx.gla_chunk, ctx=ctx),
+                         ctx), aux
     if kind == "slstm":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y, _ = S.slstm_train(lp["slstm"], h, cfg)
-        return x + y, aux
+        y, _ = S.slstm_train(lp["slstm"], h, cfg, ctx=ctx)
+        return _residual(x + y, ctx), aux
     if kind == "hymba":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y_attn = A.gqa_train(lp["attn"], h, cfg, positions, qc=qc)
-        y_ssm = S.mamba_train(lp["mamba"], h, cfg, chunk=ctx.gla_chunk)
-        x = x + 0.5 * (y_attn + y_ssm)
+        y_attn = A.gqa_train(lp["attn"], h, cfg, positions, qc=qc, ctx=ctx)
+        y_ssm = S.mamba_train(lp["mamba"], h, cfg, chunk=ctx.gla_chunk,
+                              ctx=ctx)
+        x = _residual(x + 0.5 * (y_attn + y_ssm), ctx)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + M.mlp_apply(lp["mlp"], h), aux
+        return _residual(x + M.mlp_apply(lp["mlp"], h, ctx=ctx), ctx), aux
     raise ValueError(kind)
 
 
@@ -382,7 +385,7 @@ def _run_layers_encdec(params, x, cfg: ModelConfig, ctx: ModelCtx,
     aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(params["layers"], cfg.n_layers):
         def body(xx, lp=lp):
-            kv = A.cross_kv(lp["cross"], enc_out, cfg)
+            kv = A.cross_kv(lp["cross"], enc_out, cfg, ctx)
             return _apply_block("dec", lp, xx, cfg, ctx, positions, kv,
                                 qc=ctx.qc_train)
         x, aux = _remat(cfg, body, x)
@@ -400,7 +403,7 @@ def _encode(params, enc_inputs, cfg: ModelConfig, ctx: ModelCtx):
     package's; `pick_qc(1500, 1024)` = 750), the ungated GELU MLP; each
     layer under `_remat`."""
     dt = getattr(torch, cfg.compute_dtype)
-    x = enc_inputs.to(dt) + params["enc_pos"].to(dt)
+    x = _residual(enc_inputs.to(dt) + params["enc_pos"].to(dt), ctx)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in _unstack(params["enc_layers"], cfg.encoder_layers):
         x, _ = _remat(cfg, lambda xx, lp=lp: _apply_block(
@@ -419,7 +422,7 @@ def forward_train(params, batch, cfg: ModelConfig, ctx: ModelCtx):
     0-d fp32 tensors: the masked mean NLL of the fp32 logits, the summed
     MoE aux loss, the count of unmasked targets; total = loss + 0.01 ·
     aux / n_layers."""
-    _check_mesh(cfg, ctx)
+    ctx = _for_batch(ctx, batch["tokens"].shape[0])
     with mesh_mode(ctx):
         return _forward_train(params, batch, cfg, ctx)
 
@@ -455,44 +458,42 @@ def _forward_train(params, batch, cfg: ModelConfig, ctx: ModelCtx):
 # serving: prefill
 # ---------------------------------------------------------------------------
 
-def _ffn(lp, x, cfg: ModelConfig, ctx: ModelCtx):
-    """An "attn" block's feed-forward half: MoE (its aux loss dropped, as
-    in serving) or the gated SiLU MLP."""
+def _ffn(lp, x, cfg: ModelConfig, ctx: ModelCtx, *, gated: bool = True):
+    """A block's feed-forward half: MoE (its aux loss dropped, as in
+    serving), the gated SiLU MLP, or whisper's ungated GELU MLP."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
         return _residual(x + M.moe_apply(lp["moe"], h, cfg, ctx)[0], ctx)
-    return _residual(x + M.mlp_apply(lp["mlp"], h), ctx)
+    if gated:
+        return _residual(x + M.mlp_apply(lp["mlp"], h, ctx=ctx), ctx)
+    return _residual(x + M.mlp_apply(lp["mlp"], h, gated=False, act=M.gelu,
+                                     ctx=ctx), ctx)
 
 
-def _ring(c, w: int, s: int, end: int):
+def _ring(c, w: int, s: int, end: int, cfg: ModelConfig, ctx: ModelCtx):
     """The Hymba ring of `w` slots from prefill's K/V over `s` positions:
     slot j holds the latest position p < end with p % w == j; a slot no
-    position reaches gets slot_pos 2^30."""
+    position reaches gets slot_pos 2^30. On a mesh each rank takes its
+    own rows and heads of the K/V."""
     dev = c["k"].device
     slots = torch.arange(w, dtype=torch.int64, device=dev)
     start = end - w
     p_j = start + torch.remainder(slots - start, w)
     ring_idx = torch.clamp(p_j, 0, s - 1)
     slot_pos = torch.where((p_j >= 0) & (p_j < end), p_j, 2 ** 30)
-    return {"k": c["k"].index_select(1, ring_idx),
-            "v": c["v"].index_select(1, ring_idx),
-            "slot_pos": slot_pos.to(torch.int32)}
+    part = (dp_part(ctx), None, A.heads_part(ctx, cfg.n_heads,
+                                             cfg.n_kv_heads), None)
+    k, v = local_call(ctx, lambda k, v: (k.index_select(1, ring_idx),
+                                         v.index_select(1, ring_idx)),
+                      [c["k"], c["v"]], [part] * 2, [part] * 2)
+    return {"k": k, "v": v, "slot_pos": slot_pos.to(torch.int32)}
 
 
 def _prefill_block(kind, lp, x, cfg, ctx, positions, valid, prompt_len,
                    enc_out):
     """One layer of prefill: (x, the layer's cache)."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     lp = _unshard(lp, ctx)
-
-    def mask_writes(k, log_f):
-        """Zero recurrent writes (k) and freeze decay (f=1) past the
-        prompt."""
-        if valid is None:
-            return k, log_f
-        return torch.where(valid[None, :, None, None], k, 0).to(k.dtype), \
-            torch.where(valid[None, :, None], log_f, 0.0)
-
     if kind == "attn":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.use_mla:
@@ -505,39 +506,34 @@ def _prefill_block(kind, lp, x, cfg, ctx, positions, valid, prompt_len,
     if kind == "dec":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         y, c = A.gqa_prefill(lp["attn"], h, cfg, positions,
-                             qc=ctx.qc_prefill)
-        x = x + y
-        kv = A.cross_kv(lp["cross"], enc_out, cfg)
+                             qc=ctx.qc_prefill, ctx=ctx)
+        x = _residual(x + y, ctx)
+        kv = A.cross_kv(lp["cross"], enc_out, cfg, ctx)
         h = rms_norm(x, lp["lnx"], cfg.norm_eps)
-        x = x + A.cross_attend(lp["cross"], h, kv, cfg, qc=ctx.qc_prefill)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + M.mlp_apply(lp["mlp"], h, gated=False, act=M.gelu)
-        return x, {"k": c["k"], "v": c["v"], "xk": kv["k"], "xv": kv["v"]}
+        x = _residual(x + A.cross_attend(lp["cross"], h, kv, cfg,
+                                         qc=ctx.qc_prefill, ctx=ctx), ctx)
+        return _ffn(lp, x, cfg, ctx, gated=False), \
+            {"k": c["k"], "v": c["v"], "xk": kv["k"], "xv": kv["v"]}
     if kind == "mlstm":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v, log_f, o = S._mlstm_qkvgates(lp["mlstm"], h, cfg)
-        k, log_f = mask_writes(k, log_f)
-        y, st = S.gla_chunk_scan(q, k, v, log_f, chunk=ctx.gla_chunk)
-        y = (y.reshape(b, s, -1) * o) @ lp["mlstm"]["wo"]
-        return x + y, {"state": st}
+        y, st = S.mlstm_prefill(lp["mlstm"], h, cfg, chunk=ctx.gla_chunk,
+                                valid=valid, ctx=ctx)
+        return _residual(x + y, ctx), {"state": st}
     if kind == "slstm":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y, st = S.slstm_train(lp["slstm"], h, cfg, valid=valid)
-        return x + y, {"c": st[0], "n": st[1], "h": st[2], "m": st[3]}
+        y, st = S.slstm_train(lp["slstm"], h, cfg, valid=valid, ctx=ctx)
+        return _residual(x + y, ctx), \
+            {"c": st[0], "n": st[1], "h": st[2], "m": st[3]}
     if kind == "hymba":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         y_attn, c = A.gqa_prefill(lp["attn"], h, cfg, positions,
-                                  qc=ctx.qc_prefill)
-        q, kk, vv, log_f = S._mamba_qkv(lp["mamba"], h, cfg)
-        kk, log_f = mask_writes(kk, log_f)
-        y_ssm, st = S.gla_chunk_scan(q, kk, vv, log_f, chunk=ctx.gla_chunk,
-                                     normalize=False)
-        y_ssm = y_ssm.reshape(b, s, -1) @ lp["mamba"]["w_out"]
-        x = x + 0.5 * (y_attn + y_ssm)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + M.mlp_apply(lp["mlp"], h)
+                                  qc=ctx.qc_prefill, ctx=ctx)
+        y_ssm, st = S.mamba_prefill(lp["mamba"], h, cfg, chunk=ctx.gla_chunk,
+                                    valid=valid, ctx=ctx)
+        x = _ffn(lp, _residual(x + 0.5 * (y_attn + y_ssm), ctx), cfg, ctx)
         w = min(cfg.sliding_window or s, s)
-        ring = _ring(c, w, s, s if prompt_len is None else prompt_len)
+        ring = _ring(c, w, s, s if prompt_len is None else prompt_len, cfg,
+                     ctx)
         return x, {**ring, "state": st}
     raise ValueError(kind)
 
@@ -553,7 +549,7 @@ def forward_prefill(params, batch, cfg: ModelConfig, ctx: ModelCtx,
     [B, 1, V] fp32, the cache: stacked `[L, ...]` tensors or a tuple of
     per-layer dicts, as `cache_desc` describes with S_max = S). On a mesh
     the logits and the cache are DTensors."""
-    _check_mesh(cfg, ctx)
+    ctx = _for_batch(ctx, batch["tokens"].shape[0])
     with mesh_mode(ctx):
         return _forward_prefill(params, batch, cfg, ctx, prompt_len)
 
@@ -618,29 +614,6 @@ def _forward_prefill(params, batch, cfg, ctx, prompt_len):
 # serving: decode
 # ---------------------------------------------------------------------------
 
-def _gqa_decode_ring(p, x, cache, cfg: ModelConfig, pos: int):
-    """Sliding-window ring-buffer KV cache decode (Hymba): writes the
-    step's K/V and position at slot pos % w in place; slots whose
-    position is past the window, or 2^30 (never written), are masked."""
-    b = x.shape[0]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    w = cache["k"].shape[1]
-    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-    q, knew, vnew = A._qkv(p, x, cfg, positions)
-    slot = pos % w
-    k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
-    k[:, slot:slot + 1] = knew
-    v[:, slot:slot + 1] = vnew
-    slot_pos[slot] = pos
-    valid = (slot_pos <= pos) & (slot_pos > pos - (cfg.sliding_window or w))
-    qr = q.reshape(b, 1, kv, h // kv, hd)
-    scores = A._scores(qr, k) / float(np.sqrt(np.float32(hd)))
-    scores = torch.where(valid, scores, A.NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bgrqt,btgh->bqgrh", probs, v).reshape(b, 1, -1)
-    return out @ p["wo"], {"k": k, "v": v, "slot_pos": slot_pos}
-
-
 def _decode_block(kind, lp, cache, x, cfg, ctx, pos: int):
     """One layer of decode: (x, the layer's new cache entries)."""
     lp = _unshard(lp, ctx)
@@ -660,27 +633,29 @@ def _decode_block(kind, lp, cache, x, cfg, ctx, pos: int):
         if kind == "attn":
             return _ffn(lp, x, cfg, ctx), c2
         h = rms_norm(x, lp["lnx"], cfg.norm_eps)
-        x = x + A.cross_attend(lp["cross"], h,
-                               {"k": cache["xk"], "v": cache["xv"]},
-                               cfg, qc=1)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + M.mlp_apply(lp["mlp"], h, gated=False, act=M.gelu), c2
+        x = _residual(x + A.cross_attend(
+            lp["cross"], h, {"k": cache["xk"], "v": cache["xv"]}, cfg, qc=1,
+            ctx=ctx), ctx)
+        return _ffn(lp, x, cfg, ctx, gated=False), c2
     if kind == "hymba":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y_attn, ring = _gqa_decode_ring(lp["attn"], h, cache, cfg, pos)
-        y_ssm, state = S.mamba_decode(lp["mamba"], h, cache["state"], cfg)
-        x = x + 0.5 * (y_attn + y_ssm)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + M.mlp_apply(lp["mlp"], h), {**ring, "state": state}
+        y_attn, ring = A.gqa_decode_ring(lp["attn"], h, cache, cfg, pos,
+                                         ctx=ctx)
+        y_ssm, state = S.mamba_decode(lp["mamba"], h, cache["state"], cfg,
+                                      ctx=ctx)
+        x = _residual(x + 0.5 * (y_attn + y_ssm), ctx)
+        return _ffn(lp, x, cfg, ctx), {**ring, "state": state}
     if kind == "mlstm":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y, state = S.mlstm_decode(lp["mlstm"], h, cache["state"], cfg)
-        return x + y, {"state": state}
+        y, state = S.mlstm_decode(lp["mlstm"], h, cache["state"], cfg,
+                                  ctx=ctx)
+        return _residual(x + y, ctx), {"state": state}
     if kind == "slstm":
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         y, st = S.slstm_decode(lp["slstm"], h, (
-            cache["c"], cache["n"], cache["h"], cache["m"]), cfg)
-        return x + y, {"c": st[0], "n": st[1], "h": st[2], "m": st[3]}
+            cache["c"], cache["n"], cache["h"], cache["m"]), cfg, ctx=ctx)
+        return _residual(x + y, ctx), \
+            {"c": st[0], "n": st[1], "h": st[2], "m": st[3]}
     raise ValueError(kind)
 
 
@@ -692,7 +667,7 @@ def forward_decode(params, cache, tokens, pos: int, cfg: ModelConfig,
     copied over the old. Returns (logits [B, 1, V] fp32, the cache). On a
     mesh the tokens, the logits and the cache are DTensors; each cache
     write lands on the rank whose shard holds `pos`."""
-    _check_mesh(cfg, ctx)
+    ctx = _for_batch(ctx, tokens.shape[0])
     with mesh_mode(ctx):
         return _forward_decode(params, cache, tokens, pos, cfg, ctx)
 

@@ -37,8 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (ParamDesc, constrain, dp_part,
-                                       local_call, on_mesh, shard_act)
+from repro_torch.models.common import (ParamDesc, batch_axes, constrain,
+                                       dp_part, local_call, on_mesh,
+                                       shard_act)
 
 
 def gelu(x):
@@ -112,9 +113,16 @@ def dispatch(x, wg, cfg: ModelConfig) -> dict:
     valid = slot_pos < cap
 
     tok_ids = torch.arange(t, device=x.device).repeat_interleave(k)
-    table = torch.full((e, cap), -1, dtype=torch.int64, device=x.device)
-    table[flat_e[valid], slot_pos[valid]] = tok_ids[valid]
-    table[onehot.sum(0) > cap, cap - 1] = -1
+    # each assignment's slot in the flat table, an overflowing one a
+    # place of its own past the table: every index written once, and no
+    # shape that depends on the values
+    dest = torch.where(valid, flat_e * cap + slot_pos,
+                       e * cap + torch.arange(t * k, device=x.device))
+    table = torch.full((e * cap + t * k,), -1, dtype=torch.int64,
+                       device=x.device).scatter_(0, dest, tok_ids)
+    table = table[:e * cap].view(e, cap)
+    table[:, cap - 1] = torch.where(onehot.sum(0) > cap, -1,
+                                    table[:, cap - 1])
     return {"logits": logits, "gidx": gidx, "weights": weights,
             "flat_e": flat_e, "slot_pos": slot_pos, "valid": valid,
             "table": table, "onehot": onehot, "cap": cap}
@@ -183,7 +191,7 @@ def _moe_mesh(p, x, cfg: ModelConfig, ctx):
     tp, mesh = ctx.tp_axis, ctx.mesh
     ep = cfg.n_experts % ctx.tp_size == 0 and ctx.tp_size > 1
     dp = dp_part(ctx)
-    every = tuple(ctx.dp_axes) + (tp,)
+    every = batch_axes(ctx) + (tp,)
     xf = constrain(x, ctx, dp, None, None).reshape(b * s, d)
     if ep:
         w13 = w2 = (tp, None, None)

@@ -1,6 +1,7 @@
-"""The port's side of `test_torch_distributed.py`: one of 4 `gloo` ranks
-running every mesh case of the plan in DIR/plan.json, from the inputs
-the test wrote to DIR/inputs.npz; rank 0 writes the results to
+"""The port's side of `test_torch_distributed.py` and
+`test_torch_mesh_families.py`: one of 4 `gloo` ranks running every mesh
+case of the plan in DIR/plan.json (each section optional), from the
+inputs the test wrote to DIR/inputs.npz; rank 0 writes the results to
 DIR/torch.npz. The ranks meet through a FileStore in DIR.
 
     python tests/mesh_ranks_torch.py DIR RANK
@@ -62,14 +63,21 @@ def main(root: str, rank: int) -> None:
 
     def batch_of(key):
         return {k: torch.from_numpy(inp[f"{key}/{k}"].copy())
-                for k in ("tokens", "targets")}
+                for k in ("tokens", "targets", "enc_inputs")
+                if f"{key}/{k}" in inp}
+
+    def serving(params, desc, mesh):
+        return C.tree_unflatten(params, iter(
+            C.distribute(t, s, mesh) for t, s in zip(
+                C.tree_leaves(params), C.tree_leaves(SP.param_partition(
+                    desc, M.mesh_axes(mesh), fsdp=False)))))
 
     def record(prefix, tree):
         for i, leaf in enumerate(C.tree_leaves(tree)):
             leaf = leaf.full_tensor() if C.is_dtensor(leaf) else leaf
             out[f"{prefix}/{i:04d}"] = leaf.numpy().copy()
 
-    for name, case in plan["train"].items():
+    for name, case in plan.get("train", {}).items():
         cfg = cfg_of(case)
         params, desc = params_of(name, cfg)
         mesh = mesh_of(case)
@@ -93,7 +101,7 @@ def main(root: str, rank: int) -> None:
             out[f"{name}/s{i}/grad_norm"] = met["grad_norm"].numpy()
             record(f"{name}/s{i}/params", params)
             record(f"{name}/s{i}/mu", opt["mu"])
-        if name == plan["reshard"]["from"]:
+        if name == plan.get("reshard", {}).get("from"):
             full = lambda t: t.full_tensor().clone()
             host_p = C.map_descs(full, params)
             host_o = {"step": opt["step"], "mu": C.map_descs(full, opt["mu"]),
@@ -109,8 +117,77 @@ def main(root: str, rank: int) -> None:
             out["reshard/loss"] = met["loss"].numpy()
             out["reshard/grad_norm"] = met["grad_norm"].numpy()
 
-    # the sequence-parallel flash decode, counted where it runs
-    dcase = plan["decode"]
+    if "decode" in plan:
+        flash_decode(plan["decode"], out, inp, params_of, cfg_of, mesh_of)
+    if "generate" in plan:
+        gcase = plan["generate"]
+        cfg = cfg_of(gcase)
+        params, desc = params_of("generate", cfg)
+        mesh = mesh_of(gcase)
+        out["generate/tokens"] = SV.generate(
+            serving(params, desc, mesh), cfg,
+            [list(map(int, r)) for r in inp["generate/prompts"]],
+            max_new=gcase["max_new"],
+            ctx=lm.mesh_ctx(mesh, qc_prefill=64, gla_chunk=64))
+
+    for name, scase in plan.get("search", {}).items():
+        mesh = mesh_of(scase)
+        axes = tuple(scase["data_axes"])
+        fn = distributed.make_sharded_search(mesh, k=scase["k"],
+                                             data_axes=axes)
+        base = [distributed.shard_rows(inp[f"search/{n}"], mesh, axes)
+                for n in ("vectors", "norms", "bitmaps")]
+        for p in range(3):
+            out[f"search/{name}/{p}"] = fn(
+                inp[f"search/q{p}"], inp[f"search/b{p}"], p,
+                *base).numpy()
+
+    if "loop" in plan:
+        train_loops(plan["loop"], out, root, rank, cfg_of, mesh_of)
+
+    # the recurrent and encoder-decoder families: a train step, prefill
+    # and greedy decode steps on the mesh
+    for name, case in plan.get("families", {}).items():
+        cfg = cfg_of(case)
+        params, desc = params_of(name, cfg)
+        mesh = mesh_of(case)
+        opt_cfg = ST.default_opt_cfg(cfg)
+        tparams, opt = TR.place_state(params, ST.adam_init(params, opt_cfg),
+                                      cfg, opt_cfg, mesh)
+        _, _, met = ST.make_train_step(
+            cfg, lm.mesh_ctx(mesh, qc_train=16, gla_chunk=16), accum=1,
+            opt_cfg=opt_cfg)(tparams, opt, TR.place_batch(
+                cfg, batch_of(f"{name}/b0"), mesh))
+        out[f"{name}/loss"] = met["loss"].numpy()
+        out[f"{name}/grad_norm"] = met["grad_norm"].numpy()
+        ctx = lm.mesh_ctx(mesh, qc_prefill=8, gla_chunk=8)
+        sparams = serving(params, desc, mesh)
+        prompt = batch_of(f"{name}/prompt")
+        plen = case["prompt_len"]
+        b, s_max = prompt["tokens"].shape
+        logits, cache = lm.forward_prefill(
+            sparams, {k: SV._rows(v, ctx) for k, v in prompt.items()}, cfg,
+            ctx, prompt_len=plen)
+        cache = SV._place_cache(cache, cfg, ctx, b, s_max)
+        toks = []
+        for i in range(case["steps"]):
+            out[f"{name}/logits{i}"] = logits.full_tensor().numpy()
+            nxt = torch.argmax(logits.full_tensor()[:, -1], dim=-1)
+            toks.append(nxt.numpy())
+            logits, cache = lm.forward_decode(
+                sparams, cache, SV._rows(nxt[:, None], ctx), plen + i, cfg,
+                ctx)
+        out[f"{name}/logits{case['steps']}"] = logits.full_tensor().numpy()
+        out[f"{name}/tokens"] = np.stack(toks, axis=1)
+
+    dist.barrier()
+    if rank == 0:
+        np.savez(os.path.join(root, "torch.npz"), **out)
+    dist.destroy_process_group()
+
+
+def flash_decode(dcase, out, inp, params_of, cfg_of, mesh_of):
+    """The sequence-parallel flash decode, counted where it runs."""
     cfg = cfg_of(dcase)
     params, desc = params_of("decode", cfg)
     mesh = mesh_of(dcase)
@@ -149,34 +226,10 @@ def main(root: str, rank: int) -> None:
         A.gqa_decode_flash = flash
     out["decode/flash_calls"] = np.array(len(calls))
 
-    gcase = plan["generate"]
-    cfg = cfg_of(gcase)
-    params, desc = params_of("generate", cfg)
-    mesh = mesh_of(gcase)
-    params = C.tree_unflatten(params, iter(
-        C.distribute(t, s, mesh) for t, s in zip(
-            C.tree_leaves(params), C.tree_leaves(SP.param_partition(
-                desc, M.mesh_axes(mesh), fsdp=False)))))
-    out["generate/tokens"] = SV.generate(
-        params, cfg, [list(map(int, r)) for r in inp["generate/prompts"]],
-        max_new=gcase["max_new"],
-        ctx=lm.mesh_ctx(mesh, qc_prefill=64, gla_chunk=64))
 
-    for name, scase in plan["search"].items():
-        mesh = mesh_of(scase)
-        axes = tuple(scase["data_axes"])
-        fn = distributed.make_sharded_search(mesh, k=scase["k"],
-                                             data_axes=axes)
-        base = [distributed.shard_rows(inp[f"search/{n}"], mesh, axes)
-                for n in ("vectors", "norms", "bitmaps")]
-        for p in range(3):
-            out[f"search/{name}/{p}"] = fn(
-                inp[f"search/q{p}"], inp[f"search/b{p}"], p,
-                *base).numpy()
-
-    # train_loop on a mesh: checkpoints saved from DTensors (rank 0
-    # writes), a run resumed onto another mesh, one device alongside
-    tcase = plan["loop"]
+def train_loops(tcase, out, root, rank, cfg_of, mesh_of):
+    """`train_loop` on a mesh: checkpoints saved from DTensors (rank 0
+    writes), a run resumed onto another mesh, one device alongside."""
     cfg = cfg_of(tcase)
     kw = dict(steps=tcase["steps"], global_batch=tcase["batch"][0],
               seq_len=tcase["batch"][1], save_every=tcase["save_every"],
@@ -192,22 +245,6 @@ def main(root: str, rank: int) -> None:
     if rank == 0:
         _, _, one = TR.train_loop(cfg, **kw)
         out["loop/one"] = np.array([h["loss"] for h in one])
-
-    # an architecture whose mesh forward is the next slice's refuses
-    mesh = M.make_mesh((2, 2), ("data", "model"), device="cpu")
-    refused = []
-    for arch in ("xlstm-125m", "hymba-1.5b", "whisper-medium"):
-        cfg = get_smoke_config(arch)
-        try:
-            lm.forward_prefill({}, {"tokens": None}, cfg, lm.mesh_ctx(mesh))
-        except NotImplementedError:
-            refused.append(arch)
-    out["refused"] = np.array(refused)
-
-    dist.barrier()
-    if rank == 0:
-        np.savez(os.path.join(root, "torch.npz"), **out)
-    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""The JAX package's side of `test_torch_distributed.py`: every mesh case
-of the plan in DIR/plan.json on 4 forced host devices, from the inputs
-the test wrote to DIR/inputs.npz; the results go to DIR/jax.npz.
+"""The JAX package's side of `test_torch_distributed.py` and
+`test_torch_mesh_families.py`: every mesh case of the plan in
+DIR/plan.json (each section optional) on 4 forced host devices, from the
+inputs the test wrote to DIR/inputs.npz; the results go to DIR/jax.npz.
 
     python tests/mesh_reference_jax.py DIR
 
@@ -63,14 +64,15 @@ def main(root):
             a, NamedSharding(mesh, s)), tree, specs)
 
     def batch_of(key):
-        return {"tokens": jnp.asarray(inp[key + "/tokens"]),
-                "targets": jnp.asarray(inp[key + "/targets"])}
+        return {k: jnp.asarray(inp[f"{key}/{k}"])
+                for k in ("tokens", "targets", "enc_inputs")
+                if f"{key}/{k}" in inp}
 
     def record(prefix, tree):
         for i, leaf in enumerate(jax.tree.leaves(tree)):
             out[f"{prefix}/{i:04d}"] = np.asarray(leaf)
 
-    for name, case in plan["train"].items():
+    for name, case in plan.get("train", {}).items():
         cfg = cfg_of(case)
         params, desc = params_of(name, cfg)
         mesh = mesh_of(case)
@@ -96,7 +98,7 @@ def main(root):
                 out[f"{name}/s{i}/grad_norm"] = np.asarray(met["grad_norm"])
                 record(f"{name}/s{i}/params", params)
                 record(f"{name}/s{i}/mu", opt["mu"])
-        if name == plan["reshard"]["from"]:
+        if name == plan.get("reshard", {}).get("from"):
             host_p = jax.tree.map(np.asarray, params)
             host_o = jax.tree.map(np.asarray, opt)
             rcase = plan["reshard"]
@@ -112,7 +114,78 @@ def main(root):
             out["reshard/loss"] = np.asarray(met["loss"])
             out["reshard/grad_norm"] = np.asarray(met["grad_norm"])
 
-    dcase = plan["decode"]
+    if "decode" in plan:
+        flash_decode(plan["decode"], out, inp, params_of, cfg_of, mesh_of,
+                     ctx_of, place)
+    if "generate" in plan:
+        gcase = plan["generate"]
+        cfg = cfg_of(gcase)
+        params, desc = params_of("generate", cfg)
+        mesh = mesh_of(gcase)
+        params = place(params, SP.param_partition(desc, mesh_axes(mesh),
+                                                  fsdp=False), mesh)
+        out["generate/tokens"] = SV.generate(
+            params, cfg,
+            [list(map(int, r)) for r in inp["generate/prompts"]],
+            max_new=gcase["max_new"],
+            ctx=ctx_of(mesh, qc_prefill=64, gla_chunk=64))
+
+    for name, scase in plan.get("search", {}).items():
+        # the same row shards where the reference cannot build the mesh's
+        mesh = mesh_of({"mesh": scase.get("ref_mesh", scase["mesh"])})
+        fn = distributed.make_sharded_search(
+            mesh, k=scase["k"], data_axes=tuple(scase.get(
+                "ref_data_axes", scase["data_axes"])))
+        for p in range(3):
+            out[f"search/{name}/{p}"] = np.asarray(fn(
+                inp[f"search/q{p}"], inp[f"search/b{p}"], jnp.int32(p),
+                inp["search/vectors"], inp["search/norms"],
+                inp["search/bitmaps"]))
+
+    # the recurrent and encoder-decoder families: a train step, prefill
+    # and greedy decode steps on the mesh
+    for name, case in plan.get("families", {}).items():
+        cfg = cfg_of(case)
+        params, desc = params_of(name, cfg)
+        mesh = mesh_of(case)
+        axes = mesh_axes(mesh)
+        opt_cfg = ST.default_opt_cfg(cfg)
+        tparams = place(params, SP.param_partition(desc, axes, fsdp=True),
+                        mesh)
+        ctx = ctx_of(mesh, qc_train=16, gla_chunk=16)
+        with mesh:
+            _, _, met = jax.jit(ST.make_train_step(
+                cfg, ctx, accum=1, opt_cfg=opt_cfg))(
+                tparams, ST.adam_init(tparams, opt_cfg),
+                batch_of(f"{name}/b0"))
+        out[f"{name}/loss"] = np.asarray(met["loss"])
+        out[f"{name}/grad_norm"] = np.asarray(met["grad_norm"])
+        sctx = ctx_of(mesh, qc_prefill=8, gla_chunk=8)
+        sparams = place(params, SP.param_partition(desc, axes, fsdp=False),
+                        mesh)
+        plen = case["prompt_len"]
+        toks = []
+        with mesh:
+            logits, cache = jax.jit(lambda p, b: lm.forward_prefill(
+                p, b, cfg, sctx, prompt_len=plen))(
+                sparams, batch_of(f"{name}/prompt"))
+            decode = jax.jit(lambda p, c, t, pos: lm.forward_decode(
+                p, c, t, pos, cfg, sctx))
+            for i in range(case["steps"]):
+                out[f"{name}/logits{i}"] = np.asarray(logits)
+                nxt = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+                toks.append(np.asarray(nxt))
+                logits, cache = decode(sparams, cache, nxt[:, None],
+                                       jnp.asarray(plen + i, jnp.int32))
+        out[f"{name}/logits{case['steps']}"] = np.asarray(logits)
+        out[f"{name}/tokens"] = np.stack(toks, axis=1)
+
+    np.savez(os.path.join(root, "jax.npz"), **out)
+
+
+def flash_decode(dcase, out, inp, params_of, cfg_of, mesh_of, ctx_of,
+                 place):
+    """internlm2's decode with the sequence-parallel flash decode."""
     cfg = cfg_of(dcase)
     params, desc = params_of("decode", cfg)
     mesh = mesh_of(dcase)
@@ -132,31 +205,6 @@ def main(root):
             logits, cache = decode(params, cache, nxt[:, None],
                                    jnp.asarray(plen + i, jnp.int32))
             out[f"decode/logits{i + 1}"] = np.asarray(logits)
-
-    gcase = plan["generate"]
-    cfg = cfg_of(gcase)
-    params, desc = params_of("generate", cfg)
-    mesh = mesh_of(gcase)
-    params = place(params, SP.param_partition(desc, mesh_axes(mesh),
-                                              fsdp=False), mesh)
-    out["generate/tokens"] = SV.generate(
-        params, cfg, [list(map(int, r)) for r in inp["generate/prompts"]],
-        max_new=gcase["max_new"],
-        ctx=ctx_of(mesh, qc_prefill=64, gla_chunk=64))
-
-    for name, scase in plan["search"].items():
-        # the same row shards where the reference cannot build the mesh's
-        mesh = mesh_of({"mesh": scase.get("ref_mesh", scase["mesh"])})
-        fn = distributed.make_sharded_search(
-            mesh, k=scase["k"], data_axes=tuple(scase.get(
-                "ref_data_axes", scase["data_axes"])))
-        for p in range(3):
-            out[f"search/{name}/{p}"] = np.asarray(fn(
-                inp[f"search/q{p}"], inp[f"search/b{p}"], jnp.int32(p),
-                inp["search/vectors"], inp["search/norms"],
-                inp["search/bitmaps"]))
-
-    np.savez(os.path.join(root, "jax.npz"), **out)
 
 
 if __name__ == "__main__":

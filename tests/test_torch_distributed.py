@@ -32,8 +32,10 @@ and side by side, on the same inputs and weights (the reference's
   * internlm2 smoke decode with `opt_flash_decode` on (1, 4), where its 2
     kv heads do not divide tp = 4: prefill's and 3 decode steps' logits
     within fp32 tolerance, through the port's flash decode;
-  * qwen2 smoke `generate` on (2, 2): the greedy tokens equal;
-  * xlstm-125m, hymba-1.5b and whisper-medium refuse a mesh.
+  * qwen2 smoke `generate` on (2, 2): the greedy tokens equal.
+
+The recurrent and encoder-decoder families on a mesh are
+`test_torch_mesh_families.py`'s.
 
 Every array comes from seeded numpy generators of this file's own.
 """
@@ -311,8 +313,3 @@ def test_train_loop_on_a_mesh(runs):
     np.testing.assert_allclose(port["loop/resumed"][0], port["loop/mesh"][-1],
                                rtol=LOSS_RTOL)
 
-
-def test_recurrent_and_encdec_refuse_a_mesh(runs):
-    _, port = runs
-    assert sorted(port["refused"]) == ["hymba-1.5b", "whisper-medium",
-                                       "xlstm-125m"]
